@@ -1,0 +1,5 @@
+"""Product pipelines over the ops: the cold trace replay."""
+
+from crdt_tpu_torch.models.replay import ReplayResult, replay_trace
+
+__all__ = ["ReplayResult", "replay_trace"]

@@ -1,0 +1,269 @@
+"""Shared device-side helpers in torch: id packing, size buckets, the
+host<->device transfer seam and pointer-doubling list ranking.
+
+The port's counterpart of ``crdt_tpu.ops.device``. Conventions:
+
+- Inputs are flat int32/int64/bool tensors of one device. Entry points
+  take an explicit ``device=`` and default to the card
+  (:func:`resolve_device`); with no card present they raise rather
+  than quietly run on the CPU.
+- Item IDs (client, clock) pack into one int64 (:func:`pack_id`):
+  client < 2**22, clock < 2**40.
+- ``NULLI = -1`` marks absent references.
+- Gathers: a JAX gather clamps an out-of-range index and wraps a
+  negative one; torch raises on the CPU and device-asserts on CUDA.
+  Every gather below either clamps exactly where the reference clamps
+  or reads an index that is in range by construction, and says which.
+- The ranking loops run a FIXED number of rounds computed on the host,
+  never a data-driven loop: a per-round ``any(changed)`` exit would
+  cost one device-to-host sync per round on the card.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from crdt_tpu_torch.obs.tracer import get_tracer
+
+NULLI = -1
+_CLOCK_BITS = 40
+
+_WIDE_ENV = "CRDT_TPU_WIDE_STAGING"
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`, a bare ``"cuda"`` pinned
+    to the current card's index (so devices compare equal to the ones
+    tensors report); raises when it names the card and none is present
+    (entry points never fall back to the CPU on their own — callers
+    pass ``device="cpu"`` for that)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA device is "
+            "available; pass device='cpu' to run on the host"
+        )
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def wide_staging_forced() -> bool:
+    """Debug knob: CRDT_TPU_WIDE_STAGING=1 forces every staged upload
+    to the wide int32 layout, bypassing the narrow-section encodings."""
+    return os.environ.get(_WIDE_ENV, "") not in ("", "0")
+
+
+# ---------------------------------------------------------------------------
+# host<->device transfer seam: every staged upload and result fetch of
+# the port routes through these two calls, under the reference's
+# ``xfer.*`` counter names
+# ---------------------------------------------------------------------------
+
+
+def xfer_put(arr: np.ndarray, *, device, label: str = "stage"):
+    """The ONE host->device seam. The numpy array ships at its own
+    width (an int16 staged section stays int16 on the link); for the
+    card it is copied into pinned host memory and the upload is
+    enqueued asynchronously on the current stream (the caching host
+    allocator keeps the pinned block alive until the copy has run).
+    Records ``xfer.h2d_bytes`` / ``xfer.h2d_puts`` and the enqueue
+    latency into the ``xfer.h2d`` histogram."""
+    dev = resolve_device(device)
+    tracer = get_tracer()
+    t0 = time.perf_counter()
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type == "cuda":
+        out = host.pin_memory().to(dev, non_blocking=True)
+    else:
+        out = host.to(dev)
+    if tracer.enabled:
+        nbytes = int(arr.nbytes)
+        tracer.observe("xfer.h2d", time.perf_counter() - t0)
+        tracer.count("xfer.h2d_bytes", nbytes)
+        tracer.count("xfer.h2d_puts")
+        tracer.count("xfer.h2d_bytes_by", nbytes, labels={"path": label})
+    return out
+
+
+def xfer_fetch(t: torch.Tensor, *, label: str = "result") -> np.ndarray:
+    """The ONE device->host seam: blocks until the tensor's producers
+    have run (execution wait, excluded from the ``xfer.d2h``
+    histogram), then copies it to a numpy array."""
+    tracer = get_tracer()
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    t0 = time.perf_counter()
+    h = t.cpu().numpy()
+    if tracer.enabled:
+        tracer.observe("xfer.d2h", time.perf_counter() - t0)
+        tracer.count("xfer.d2h_bytes", int(h.nbytes))
+        tracer.count("xfer.d2h_fetches")
+        tracer.count("xfer.d2h_bytes_by", int(h.nbytes),
+                     labels={"path": label})
+    return h
+
+
+def record_staged_widths(widths: dict, shipped_bytes: int,
+                         wide_bytes: int) -> None:
+    """Per-upload narrowing record: one ``xfer.col_width`` count per
+    section at its chosen width and the ``xfer.narrowed_ratio`` gauge
+    = shipped / wide-equivalent bytes (1.0 = no diet, 0.5 = halved)."""
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return
+    for col, bits in widths.items():
+        tracer.count("xfer.col_width", labels={"col": col, "bits": bits})
+    if wide_bytes > 0:
+        tracer.gauge(
+            "xfer.narrowed_ratio", round(shipped_bytes / wide_bytes, 4)
+        )
+        tracer.count("xfer.staged_bytes", shipped_bytes)
+        tracer.count("xfer.h2d_bytes_saved",
+                     max(wide_bytes - shipped_bytes, 0))
+
+
+# ---------------------------------------------------------------------------
+# host helpers
+# ---------------------------------------------------------------------------
+
+
+def bucket_pow2(n: int, floor: int = 9) -> int:
+    """Power-of-two size bucket (host helper)."""
+    return 1 << max(floor, (max(n, 1) - 1).bit_length())
+
+
+def bucket_grid(n: int, floor: int = 9) -> int:
+    """Quarter-pow2 size bucket: smallest of {1, 1.25, 1.5, 1.75}*2^k
+    >= n (caps padding waste at 25%)."""
+    n = max(n, 1 << floor)
+    k = (n - 1).bit_length() - 1  # candidate exponent: 2^k < n <= 2^(k+1)
+    for num in (5, 6, 7, 8):
+        cand = num << max(k - 2, 0)
+        if cand >= n:
+            return cand
+    return 1 << (k + 1)
+
+
+def pack_id(client: torch.Tensor, clock: torch.Tensor) -> torch.Tensor:
+    """(client, clock) -> single sortable int64; null (-1,*) -> -1."""
+    packed = (client.to(torch.int64) << _CLOCK_BITS) | clock.to(torch.int64)
+    return torch.where(client < 0, torch.full_like(packed, NULLI), packed)
+
+
+def _round_cap(n: int) -> int:
+    """ceil(log2 n) + 1: enough doubling rounds for any path in an
+    n-node forest."""
+    return max(1, (max(n, 2) - 1).bit_length() + 1)
+
+
+# ---------------------------------------------------------------------------
+# list ranking
+# ---------------------------------------------------------------------------
+
+
+def pointer_double(f: torch.Tensor,
+                   max_iters: int | None = None) -> torch.Tensor:
+    """Iterate f <- f∘f; returns the terminal reached from each node
+    (``f`` maps node -> node with self-loops at terminals).
+
+    Runs EXACTLY ``min(max_iters, ceil(log2 n) + 1)`` rounds, where the
+    reference runs a while-loop that also exits once ``g∘g == g``. The
+    outputs are identical: the reference exits only at a g with
+    g∘g = g, and every further round maps such a g to g[g] = g, so the
+    rounds this loop runs past that point change nothing. A cyclic
+    input (hostile origins) has no such point before the cap, or
+    reaches one and stays there, so both loops stop at the same value;
+    tests/test_torch_device.py pins a cyclic input.
+
+    Gathers: ``g`` holds node indices in [0, n) by construction (every
+    caller builds ``f`` from in-range pointers and self-loops)."""
+    n = f.shape[0]
+    cap = _round_cap(n)
+    rounds = cap if max_iters is None else max(1, min(max_iters, cap))
+    g = f
+    for _ in range(rounds):
+        g = g[g]
+    return g
+
+
+# low 32 bits of the packed (pointer, distance) word hold the distance;
+# ~_W_DIST is the 64-bit mask of the pointer half
+_W_DIST = (1 << 32) - 1
+
+
+def wyllie_dist(succ: torch.Tensor, rounds: int) -> torch.Tensor:
+    """Distance-to-terminal along ``succ`` for every node (terminals
+    are self-loops), by pointer doubling with the (pointer, distance)
+    pair packed into ONE int64 per node: one random gather a round.
+
+    Runs ``min(rounds, ceil(log2 m) + 1)`` rounds (the reference's
+    fixed ``fori_loop`` form); callers guarantee 2**rounds >= the
+    longest path. Gathers: the pointer half holds node indices in
+    [0, m) by construction."""
+    m = succ.shape[0]
+    idx = torch.arange(m, dtype=torch.int32, device=succ.device)
+    dist0 = (succ != idx).to(torch.int64)
+    comb = (succ.to(torch.int64) << 32) | dist0
+    for _ in range(min(rounds, _round_cap(m))):
+        c2 = comb[comb >> 32]
+        newd = (comb & _W_DIST) + (c2 & _W_DIST)
+        comb = (c2 & ~_W_DIST) | newd
+    return (comb & _W_DIST).to(torch.int32)
+
+
+def dfs_ranks(
+    parent: torch.Tensor,       # [B] int32 tree parent (root children
+                                #     point at B+seg; non-items at B+num_roots)
+    next_sib: torch.Tensor,     # [B] int32 next sibling, NULLI at group end
+    first_child: torch.Tensor,  # [B+num_roots] int32 first child per node
+    is_item: torch.Tensor,      # [B] bool real tree members
+    num_roots: int,
+    rank_rounds: int,
+) -> torch.Tensor:
+    """Distance-to-end of the DFS traversal for every node (items and
+    the virtual roots appended after them) via successor pointer
+    doubling (Wyllie list ranking).
+
+    The DFS successor of a node is its first child if any, else the
+    next sibling of the nearest ancestor (itself included) that has
+    one — the climb past last-child chains, itself a pointer doubling.
+    ``rank_rounds`` (host-computed from the largest segment) fixes both
+    doubling loops' round counts."""
+    B = parent.shape[0]
+    m = B + num_roots
+    dev = parent.device
+    idx_m = torch.arange(m, dtype=torch.int32, device=dev)
+    pad_next = torch.cat([
+        next_sib.to(torch.int32),
+        torch.full((num_roots,), NULLI, dtype=torch.int32, device=dev),
+    ])
+    pad_parent = torch.cat([
+        parent.to(torch.int32),
+        torch.zeros(num_roots, dtype=torch.int32, device=dev),
+    ])
+    pad_item = torch.cat([
+        is_item, torch.zeros(num_roots, dtype=torch.bool, device=dev),
+    ])
+
+    # g: last children climb to their parent (an item's parent is a
+    # node in [0, m)), every other node is a fixed point
+    is_last_child = (idx_m < B) & (pad_next == NULLI) & pad_item
+    g = torch.where(is_last_child, pad_parent, idx_m)
+    climb_t = pointer_double(g, max_iters=rank_rounds)
+
+    # clamp as the reference does
+    y_next = pad_next[climb_t.clamp(0, m - 1)]
+    succ = torch.where((climb_t >= B) | (y_next < 0), idx_m, y_next)
+    succ = torch.where(
+        first_child >= 0, first_child.clamp(0, m - 1), succ
+    )
+    succ = torch.where(pad_item | (idx_m >= B), succ, idx_m)
+
+    return wyllie_dist(succ.to(torch.int32), rounds=rank_rounds)
