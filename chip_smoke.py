@@ -10,19 +10,28 @@ JAX or of the reference package. Phases, each fatal on failure:
   2. build every hand-written kernel from ``crdt_tpu_torch/csrc`` (one
      ``nvcc`` per source, all at once) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card on
-     edge cases, exact int32 equality;
+     edge cases, exact equality;
   4. replay the benchmark's traces (1000 replicas x 100 ops, the
-     conflict trace, and the 16x scale trace of 1000 x 1600 ops) with
-     ``device="cuda"`` and ``device="cpu"``: caches (``json.dumps``
-     with sorted keys) and snapshots must be identical, both kernels'
-     launch counts must be > 0 in every card run (counts are zeroed
-     just before each run and read just after), and each kernel must
-     equal its plain version, exactly, on the inputs the run gave it;
-     one more card replay of each trace under the profiler gives the
-     share of it in which the card is busy;
-  5. time each kernel on the inputs each card run gave it, against its
-     byte bound, its plain version and (where one exists) one library
-     call.
+     conflict trace, and the 16x scale trace of 1000 x 1600 ops) on the
+     device route with ``device="cuda"`` and ``device="cpu"``: caches
+     (``json.dumps`` with sorted keys) and snapshots must be identical;
+  5. replay the same traces on the fleet route (one gossip + merge
+     round over the blobs as replicas) on the card, and on the CPU for
+     the two 1000 x 100 traces: each result must equal the CPU's and
+     the card's device-route result; then one ``ReplicaFleet.
+     delta_round`` on 1000 replicas, a budget below and one above the
+     deficit, card against CPU field by field;
+  6. time each kernel on the inputs each card run gave it (CUDA events
+     around a CUDA-graph replay of the calls), against its bound, its
+     plain version and (where one exists) one library call; then count
+     how many of a known number of launches a profiler trace holds.
+
+In phases 4 and 5 every kernel of the path must have launched in every
+card run (counts are zeroed just before each run and read just after)
+and none in a CPU run, each kernel must equal its plain version,
+exactly, on the inputs the run gave it, and one more card replay of
+each trace under the profiler gives the share of it in which the card
+is busy (a lower bound where the trace loses activities).
 
 The line before the last is the kernels JSON object, at the scale
 run's shapes; the last line is
@@ -41,6 +50,10 @@ from contextlib import contextmanager
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
+# integer operations outside the tensor cores: 64 INT32 lanes per SM
+# (NVIDIA H100 Tensor Core GPU architecture white paper) x 132 SMs x
+# the 1.98 GHz boost clock (H100 SXM data sheet)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 ROOT = Path(__file__).resolve().parent
 
@@ -48,6 +61,21 @@ ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "seg_argmax_scan": "crdt_tpu/ops/pallas_kernels.py:441",
     "stream_scatter": "crdt_tpu/ops/pallas_kernels.py:544",
+    "ds_mask": "crdt_tpu/ops/pallas_kernels.py:129",
+    "sv_deficit": "crdt_tpu/ops/pallas_kernels.py:262",
+}
+
+# the kernels each replay route must launch on the card
+ROUTE_KERNELS = {
+    "device": ("seg_argmax_scan", "stream_scatter"),
+    "fleet": ("ds_mask", "sv_deficit"),
+}
+
+PHASES = {
+    "device": ("decode", "pack", "converge.dispatch", "converge.fetch",
+               "gather", "materialize", "compact"),
+    "fleet": ("decode", "fleet.load", "fleet.step", "gather",
+              "materialize", "compact"),
 }
 
 
@@ -87,9 +115,11 @@ def cuda_ms(torch, fn, iters: int, batches: int = 5) -> float:
     return statistics.median(per)
 
 
-def traced_device_us(torch, run) -> float:
-    """Microseconds of device activity (every kernel, memset and copy)
-    the profiler traces while ``run()`` runs and the card drains."""
+def traced_device(torch, run) -> tuple:
+    """(microseconds, count) of the device activities (every kernel,
+    memset and copy) the profiler traces while ``run()`` runs and the
+    card drains. The trace may lose activities, so the time is a lower
+    bound: kernel times come from :func:`graph_ms` instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,64 +127,93 @@ def traced_device_us(torch, run) -> float:
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans), len(spans)
 
 
-def device_ms(torch, fn, iters: int) -> float:
-    """Mean device time of one call: the traced device activity of
-    ``iters`` calls over ``iters``. Unlike :func:`cuda_ms` it leaves out
-    the gaps in which the card waits for the host to enqueue."""
-    fn()
+def graph_ms(torch, fn, iters: int, batches: int = 5) -> float:
+    """Median over ``batches`` of the mean device time of one call, by
+    CUDA events around one replay of a CUDA graph that holds ``iters``
+    calls: the host enqueues the graph once, so unlike :func:`cuda_ms`
+    no host gap lies between the calls. Raises where ``fn`` cannot be
+    captured (it waits on the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-
-    def run():
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(iters):
             fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(batches):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        per.append(s.elapsed_time(e) / iters)
+    return statistics.median(per)
 
-    us = traced_device_us(torch, run)
-    if us <= 0:
-        raise RuntimeError("the profiler traced no device time")
-    return us / iters / 1e3
+
+def profiler_check(torch, fn, per_call: int, iters: int = 50,
+                   sessions: int = 5) -> list:
+    """(activities, device ms a call) of each of ``sessions`` profiler
+    traces of ``iters`` calls of ``fn``, which launches ``per_call``
+    kernels: a count below ``iters * per_call`` is a trace that lost
+    activities, and its time reads low by as much."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(sessions):
+        us, count = traced_device(
+            torch, lambda: [fn() for _ in range(iters)])
+        out.append((count, us / iters / 1e3))
+    return out
 
 
 def timed(torch, fn, iters: int) -> tuple:
     """(device ms, wall ms, source of the device ms) of one call. The
     wall time (CUDA events around back-to-back calls) includes the host's
-    enqueue when that is slower than the card; where the profiler
-    traces nothing, the device time is the wall time, and says so."""
+    enqueue when that is slower than the card; where ``fn`` cannot be
+    captured in a graph, the device time is the wall time, and says so."""
     wall = cuda_ms(torch, fn, iters)
     try:
-        return device_ms(torch, fn, iters), wall, "profiler"
+        return graph_ms(torch, fn, iters), wall, "cuda graph"
     except RuntimeError as e:
-        log(f"profiler gave no device time ({e}); using CUDA events")
+        torch.cuda.synchronize()
+        log(f"no graph time ({str(e).splitlines()[0]}); using CUDA events")
         return wall, wall, "events"
 
 
 @contextmanager
-def capture_kernel_inputs(packed_mod, seen: dict):
+def capture_kernel_inputs(seen: dict, *sites):
     """Record (a device copy of) every input the main path hands the
-    two kernel wrappers, then call the real wrapper — the launch and
-    its count are the main path's own."""
-    orig_scan = packed_mod.seg_argmax_scan
-    orig_scatter = packed_mod.stream_scatter
+    kernel wrappers named by ``sites`` — (module, wrapper name) pairs,
+    the module being the caller that imported the wrapper — then call
+    the real wrapper: the launch and its count are the main path's own."""
+    originals = [(mod, name, getattr(mod, name)) for mod, name in sites]
 
-    def scan(client, flags):
-        seen.setdefault("seg_argmax_scan", []).append(
-            (client.clone(), flags.clone()))
-        return orig_scan(client, flags)
+    def recording(name, fn):
+        def call(*args):
+            seen.setdefault(name, []).append(tuple(
+                a.clone() if hasattr(a, "clone") else a for a in args))
+            return fn(*args)
+        return call
 
-    def scatter(pos, n_out):
-        seen.setdefault("stream_scatter", []).append((pos.clone(), n_out))
-        return orig_scatter(pos, n_out)
-
-    packed_mod.seg_argmax_scan = scan
-    packed_mod.stream_scatter = scatter
+    for mod, name, fn in originals:
+        setattr(mod, name, recording(name, fn))
     try:
         yield
     finally:
-        packed_mod.seg_argmax_scan = orig_scan
-        packed_mod.stream_scatter = orig_scatter
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
 
 
 def main() -> int:
@@ -173,11 +232,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    from crdt_tpu_torch.models import fleet
     from crdt_tpu_torch.models import replay as rp
     from crdt_tpu_torch.models import traces
     from crdt_tpu_torch.obs import Tracer, set_tracer
-    from crdt_tpu_torch.ops import _build, kernels
+    from crdt_tpu_torch.ops import _build, deleteset, kernels, statevec
     from crdt_tpu_torch.ops import packed as packed_mod
+    from crdt_tpu_torch.parallel.delta import synth_resident_columns
+
+    capture_sites = {
+        "device": ((packed_mod, "seg_argmax_scan"),
+                   (packed_mod, "stream_scatter")),
+        "fleet": ((deleteset, "ds_mask"), (statevec, "sv_deficit")),
+    }
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -192,7 +259,7 @@ def main() -> int:
         _build.library(name)
 
     dev = torch.device("cuda")
-    max_err = {"seg_argmax_scan": 0, "stream_scatter": 0}
+    max_err = {name: 0 for name in REPLACES}
 
     def hold(name: str, got, want) -> None:
         torch.cuda.synchronize()
@@ -206,141 +273,190 @@ def main() -> int:
         if err:
             raise AssertionError(f"{name}: kernel != plain (max |d| {err})")
 
-    def hold_scan(client, flags):
-        hold("seg_argmax_scan", kernels.seg_argmax_scan(client, flags),
-             kernels.seg_argmax_scan_plain(client, flags))
-
-    def hold_scatter(pos, n_out):
-        hold("stream_scatter", kernels.stream_scatter(pos, n_out),
-             kernels.stream_scatter_plain(pos, n_out))
+    def hold_kernel(name: str, *args) -> None:
+        hold(name, getattr(kernels, name)(*args),
+             getattr(kernels, name + "_plain")(*args))
 
     # ---- 3. edge cases -------------------------------------------------
     g = torch.Generator(device="cpu").manual_seed(0)
 
-    def ri(lo, hi, n):
+    def ri(lo, hi, n, dtype=torch.int32):
         return torch.randint(lo, hi, (n,), generator=g,
-                             dtype=torch.int32).to(dev)
+                             dtype=dtype).to(dev)
 
     i32 = dict(dtype=torch.int32, device=dev)
     for n in (1, 2, 31, 2047, 2048, 2049, 70_001, 1_000_003):
         client = ri(0, 1 << 14, n)
         one_run = torch.zeros(n, **i32)
         one_run[0] = 1
-        hold_scan(client, one_run)                        # all one run
-        hold_scan(client, torch.ones(n, **i32))           # own runs
-        hold_scan(torch.full((n,), 7, **i32), one_run)    # all ties
+        hold_kernel("seg_argmax_scan", client, one_run)   # all one run
+        hold_kernel("seg_argmax_scan", client,
+                    torch.ones(n, **i32))                 # own runs
+        hold_kernel("seg_argmax_scan", torch.full((n,), 7, **i32),
+                    one_run)                              # all ties
         flags = (ri(0, 50, n) == 0).to(torch.int32) * ri(1, 3, n)
         flags[0] = 1
-        hold_scan(ri(0, 4, n), flags)                     # ties + runs
+        hold_kernel("seg_argmax_scan", ri(0, 4, n), flags)  # ties + runs
         pad = client.clone()
         pad_flags = flags.clone()
         tail = n // 3
         if tail:
             pad[n - tail:] = -1                           # padding tail
             pad_flags[n - tail:] = 1
-        hold_scan(pad, pad_flags)
+        hold_kernel("seg_argmax_scan", pad, pad_flags)
         no_start = flags.clone()
         no_start[0] = 0                                   # no opening flag
-        hold_scan(client, no_start)
-    hold_scan(torch.zeros(0, **i32), torch.zeros(0, **i32))
+        hold_kernel("seg_argmax_scan", client, no_start)
+    hold_kernel("seg_argmax_scan", torch.zeros(0, **i32),
+                torch.zeros(0, **i32))
     for n in (1, 5, 2048, 40_961, 1_000_003):
         perm = torch.randperm(n, generator=g).to(torch.int32).to(dev)
-        hold_scatter(perm, n)                             # permutation
+        hold_kernel("stream_scatter", perm, n)            # permutation
         drop = perm.clone()
         drop[::7] = -1                                    # negative
         drop[3::11] = n + 5                               # past the end
-        hold_scatter(drop, n)
-        hold_scatter(perm, n // 2)                        # short output
-    hold_scatter(torch.zeros(0, **i32), 4)
-    hold_scatter(torch.arange(4, **i32), 0)
+        hold_kernel("stream_scatter", drop, n)
+        hold_kernel("stream_scatter", perm, n // 2)       # short output
+    hold_kernel("stream_scatter", torch.zeros(0, **i32), 4)
+    hold_kernel("stream_scatter", torch.arange(4, **i32), 0)
+    ds_edge_cases(torch, dev, ri, hold_kernel)
+    sv_edge_cases(torch, dev, g, hold_kernel)
     log(f"kernel edge cases: kernel == plain on the card, exact "
         f"(max |d| {max_err})")
     # the first profiling session of a process may trace no device
     # activity while CUPTI starts up: open and discard one
-    traced_device_us(torch, lambda: torch.ones(1, device=dev))
+    traced_device(torch, lambda: torch.ones(1, device=dev))
 
-    # ---- 4. the main path ---------------------------------------------
     plans = [
         ("trace_1000x100", lambda: traces.build_trace(1000, 100, seed=0)),
         ("conflict_1000x100",
          lambda: traces.build_conflict_trace(1000, 100)),
         ("scale_1000x1600", lambda: traces.build_trace(1000, 1600, seed=0)),
     ]
-    phase_names = ("decode", "pack", "converge.dispatch", "converge.fetch",
-                   "gather", "materialize", "compact")
-    launches = {"seg_argmax_scan": 0, "stream_scatter": 0}
-    card_inputs: dict = {}
+    launches = {name: 0 for name in REPLACES}
+    card_inputs: dict = {label: {} for label, _ in plans}
+    device_results: dict = {}
+
+    def replay_run(route: str, label: str, blobs, device: str):
+        """One replay on ``route``: counts zeroed just before, read
+        just after; returns the result and records the run's kernel
+        inputs, phase spans and transfer counters."""
+        tracer = set_tracer(Tracer(enabled=True))
+        seen: dict = {}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with capture_kernel_inputs(seen, *capture_sites[route]):
+            res = rp.replay_trace(blobs, route=route, device=device)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        set_tracer(Tracer(enabled=False))
+        rep = tracer.report()
+        phases = {p: round(rep["spans"][p]["total_s"], 6)
+                  for p in PHASES[route] if p in rep["spans"]}
+        xfer = {k: v for k, v in rep["counters"].items()
+                if k.startswith("xfer.d2h_bytes") or k.startswith(
+                    "xfer.h2d_bytes") or k.startswith("xfer.h2d_puts")
+                or k.startswith("xfer.d2h_fetches")}
+        log(f"{label} [{route}, {device}]: {res.n_ops} ops in {wall:.3f} s; "
+            f"phases (s) {json.dumps(phases)}; launches {counts}")
+        log(f"{label} [{route}, {device}]: xfer {json.dumps(xfer)}")
+        if device == "cuda":
+            for name in ROUTE_KERNELS[route]:
+                if counts[name] <= 0:
+                    raise AssertionError(
+                        f"{label} [{route}]: {name} never launched on "
+                        "the card")
+                launches[name] += counts[name]
+            card_inputs[label].update(seen)
+        elif any(counts.values()):
+            raise AssertionError(
+                f"{label} [{route}]: CPU run launched {counts}")
+        return res
+
+    def same(label: str, a, b, what: str) -> None:
+        if json.dumps(a.cache, sort_keys=True) != json.dumps(
+                b.cache, sort_keys=True):
+            raise AssertionError(f"{label}: cache differs ({what})")
+        if a.snapshot != b.snapshot:
+            raise AssertionError(f"{label}: snapshot differs ({what})")
+        if not a.cache or not a.snapshot or a.n_ops != b.n_ops:
+            raise AssertionError(f"{label}: empty or short result ({what})")
+
+    def busy_share(label: str, route: str, blobs) -> None:
+        # one more card replay under the profiler: how much of it the
+        # card is busy (the profiler slows the host a little)
+        t0 = time.perf_counter()
+        busy_us, _ = traced_device(
+            torch, lambda: rp.replay_trace(blobs, route=route,
+                                           device="cuda"))
+        wall = time.perf_counter() - t0
+        log(f"{label} [{route}]: device busy {busy_us / 1e3:.3f} ms of a "
+            f"{wall * 1e3:.1f} ms profiled replay "
+            f"(busy share {busy_us / 1e6 / wall:.5f})")
+
+    def hold_run_inputs(label: str, route: str) -> None:
+        # the kernels on exactly the inputs this run gave them
+        for name in ROUTE_KERNELS[route]:
+            for args in card_inputs[label][name]:
+                hold_kernel(name, *args)
+        log(f"{label} [{route}]: kernel == plain on the run's own inputs")
+
+    # ---- 4. the device route -------------------------------------------
+    blobs_of = {}
     for i, (label, build) in enumerate(plans):
         t0 = time.perf_counter()
-        blobs = build()
+        blobs = blobs_of[label] = build()
         log(f"{label}: {len(blobs)} blobs, {sum(map(len, blobs))} bytes, "
             f"built in {time.perf_counter() - t0:.3f} s")
         if i == 0:
             # warm-up: CUDA context, library loads, allocator pools
             rp.replay_trace(blobs, device="cuda")
             torch.cuda.synchronize()
-        runs = {}
-        for device in ("cuda", "cpu"):
-            tracer = set_tracer(Tracer(enabled=True))
-            seen: dict = {}
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            with capture_kernel_inputs(packed_mod, seen):
-                res = rp.replay_trace(blobs, device=device)
-            wall = time.perf_counter() - t0
-            counts = kernels.launch_counts()
-            set_tracer(Tracer(enabled=False))
-            spans = tracer.report()["spans"]
-            phases = {p: round(spans[p]["total_s"], 6)
-                      for p in phase_names if p in spans}
-            log(f"{label} [{device}]: {res.n_ops} ops in {wall:.3f} s; "
-                f"phases (s) {json.dumps(phases)}; launches {counts}")
-            if device == "cuda":
-                for name, c in counts.items():
-                    if c <= 0:
-                        raise AssertionError(
-                            f"{label}: {name} never launched on the card")
-                    launches[name] += c
-                card_inputs[label] = seen
-            elif any(counts.values()):
-                raise AssertionError(f"{label}: CPU run launched {counts}")
-            runs[device] = res
-        a, b = runs["cuda"], runs["cpu"]
-        if json.dumps(a.cache, sort_keys=True) != json.dumps(
-                b.cache, sort_keys=True):
-            raise AssertionError(f"{label}: card cache != CPU cache")
-        if a.snapshot != b.snapshot:
-            raise AssertionError(f"{label}: card snapshot != CPU snapshot")
-        if not a.cache or not a.snapshot or a.n_ops != b.n_ops:
-            raise AssertionError(f"{label}: empty or short result")
-        log(f"{label}: card == CPU (cache {len(json.dumps(a.cache))} "
-            f"chars, snapshot {len(a.snapshot)} bytes)")
+        card = replay_run("device", label, blobs, "cuda")
+        cpu = replay_run("device", label, blobs, "cpu")
+        same(label, card, cpu, "device route, card vs CPU")
+        log(f"{label} [device]: card == CPU (cache "
+            f"{len(json.dumps(card.cache))} chars, snapshot "
+            f"{len(card.snapshot)} bytes)")
+        device_results[label] = card
         if i == 0:
-            again = rp.replay_trace([a.snapshot], device="cuda")
-            if again.cache != a.cache:
+            again = rp.replay_trace([card.snapshot], device="cuda")
+            if again.cache != card.cache:
                 raise AssertionError(f"{label}: snapshot replay differs")
             log(f"{label}: the compacted snapshot replays to the same cache")
-        # one more card replay under the profiler: how much of it
-        # the card is busy (the profiler slows the host a little)
-        t0 = time.perf_counter()
-        busy_us = traced_device_us(
-            torch, lambda: rp.replay_trace(blobs, device="cuda"))
-        wall = time.perf_counter() - t0
-        log(f"{label}: device busy {busy_us / 1e3:.3f} ms of a "
-            f"{wall * 1e3:.1f} ms profiled replay "
-            f"(busy share {busy_us / 1e6 / wall:.5f})")
-        # the kernels on exactly the inputs this run gave them
-        for client, flags in card_inputs[label]["seg_argmax_scan"]:
-            hold_scan(client, flags)
-        for pos, n_out in card_inputs[label]["stream_scatter"]:
-            hold_scatter(pos, n_out)
-        log(f"{label}: kernel == plain on the run's own inputs")
+        busy_share(label, "device", blobs)
+        hold_run_inputs(label, "device")
 
-    # ---- 5. timing at the main path's shapes ---------------------------
+    # ---- 5. the fleet route and the delta round -------------------------
+    for i, (label, _) in enumerate(plans):
+        blobs = blobs_of[label]
+        if i == 0:
+            rp.replay_trace(blobs, route="fleet", device="cuda")  # warm-up
+            torch.cuda.synchronize()
+        card = replay_run("fleet", label, blobs, "cuda")
+        if not label.startswith("scale"):
+            cpu = replay_run("fleet", label, blobs, "cpu")
+            same(label, card, cpu, "fleet route, card vs CPU")
+        same(label, card, device_results[label],
+             "fleet route vs device route, card")
+        log(f"{label} [fleet]: card == "
+            f"{'device route' if label.startswith('scale') else 'CPU == device route'}")
+        busy_share(label, "fleet", blobs)
+        hold_run_inputs(label, "fleet")
+    delta_round_check(torch, fleet, kernels, synth_resident_columns)
+
+    # ---- 6. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
         rows = kernel_rows(torch, kernels, seen, launches, max_err)
         log(f"kernel times ({label}): " + json.dumps(rows))
+    # how far a profiler trace (the busy shares above) can be trusted
+    client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
+    checks = profiler_check(
+        torch, lambda: kernels.seg_argmax_scan(client, flags), 3)
+    log("profiler check: 50 calls of seg_argmax_scan (3 launches each, "
+        "150 activities) traced (activities, device ms a call) "
+        f"{json.dumps(checks)}")
     log(f"card: {smi}")
     # the kernels line carries the scale run's shapes (the last trace)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -350,22 +466,141 @@ def main() -> int:
     return 0
 
 
+def ds_edge_cases(torch, dev, ri, hold_kernel) -> None:
+    """``ds_mask`` on the card against its plain version: no ranges,
+    all-null ranges, D around the reference's old crossover (64) and
+    beyond shared memory, overlapping and nested ranges, clocks past
+    2**31 and near 2**40, invalid rows, N not a multiple of a block."""
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    def items(n, base, span, clients):
+        client = ri(-1, clients, n)
+        clock = base + ri(0, span, n, torch.int64)
+        valid = ri(0, 5, n) > 0
+        return client, clock, valid
+
+    def disjoint(d, base, step, clients):
+        k = torch.arange(d, **i64)
+        rc = (k % clients).to(torch.int32)
+        rs = base + (k // clients) * step + ri(0, step // 2, d, torch.int64)
+        re = rs + ri(1, step // 2, d, torch.int64)
+        perm = torch.randperm(d, device=dev)
+        return rc[perm], rs[perm], re[perm]
+
+    def with_nulls(ranges, nulls):
+        fill = torch.full((nulls,), -1, **i64)
+        rc, rs, re = ranges
+        return (torch.cat([rc, fill.to(torch.int32)]), torch.cat([rs, fill]),
+                torch.cat([re, fill]))
+
+    empty = torch.zeros(0, **i64)
+    for n in (1, 255, 257, 1_000_003):
+        it = items(n, 0, 4096, 50)
+        hold_kernel("ds_mask", *it, empty.to(torch.int32), empty, empty)
+        null = torch.full((512,), -1, **i64)
+        hold_kernel("ds_mask", *it, null.to(torch.int32), null, null)
+    for d, n, base in ((1, 1000, 0), (64, 65_537, 0),
+                       (65, 65_537, (1 << 31) - 5000),
+                       (2049, 257_000, 1 << 31),
+                       (8533, 1_000_003, (1 << 40) - (1 << 30)),
+                       (8534, 1_000_003, 0),
+                       (131_072, 2_048_000, (1 << 40) - (1 << 30))):
+        clients, step = 97, 64
+        span = (d // clients + 1) * step
+        it = items(n, base, span, clients)
+        hold_kernel("ds_mask", *it,
+                    *with_nulls(disjoint(d, base, step, clients), 13))
+        # overlapping: random starts, lengths up to a few strides
+        rc = ri(0, clients, d)
+        rs = base + ri(0, span, d, torch.int64)
+        re = rs + ri(0, 4 * step, d, torch.int64)
+        hold_kernel("ds_mask", *it, rc, rs, re)
+    # nested: one long range holding shorter later ones
+    client = torch.ones(5, **i64).to(torch.int32)
+    clock = torch.tensor([2, 6, 8, 10, 11], **i64)
+    valid = torch.ones(5, dtype=torch.bool, device=dev)
+    hold_kernel("ds_mask", client, clock, valid,
+                torch.tensor([1, 1, 1], **i64).to(torch.int32),
+                torch.tensor([0, 5, 9], **i64),
+                torch.tensor([11, 7, 10], **i64))
+
+
+def sv_edge_cases(torch, dev, g, hold_kernel) -> None:
+    """``sv_deficit`` on the card against its plain version: ragged R
+    and C around the 64-row tile, zero and identical rows, absolute
+    clocks past 2**40, and summed column spreads past 2**31 (where the
+    reference took its exact fallback)."""
+
+    def svs(r, c, base, spread):
+        return (base + torch.randint(0, spread, (r, c), generator=g,
+                                     dtype=torch.int64)).to(dev)
+
+    for r in (1, 7, 64, 65, 1000, 1030):
+        for c in (1, 3, 128, 1002):
+            hold_kernel("sv_deficit", svs(r, c, 1 << 40, 10_000))
+    hold_kernel("sv_deficit", torch.zeros((1000, 1002), dtype=torch.int64,
+                                          device=dev))
+    same_rows = svs(1, 1002, 7, 500).repeat(1000, 1)
+    same_rows[500:] += 3
+    hold_kernel("sv_deficit", same_rows)
+    lag = svs(1000, 1002, 0, 1000)
+    lag[0] += 1 << 33
+    lag[:, 5] += torch.arange(1000, device=dev) << 22
+    hold_kernel("sv_deficit", lag)
+
+
+def delta_round_check(torch, fleet, kernels, synth_resident_columns) -> None:
+    """One targeted anti-entropy round on 1000 replicas (1002 clients,
+    8 fresh rows each over a 96-row shared history), budgets 4 (below
+    the deficit) and 16 (above): the card's outputs equal the CPU's
+    field by field."""
+    cols = synth_resident_columns(1000, 96, 8, seed=0)
+    for budget in (4, 16):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        card = fleet.ReplicaFleet(1000, 104, device="cuda").delta_round(
+            cols, budget=budget)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if counts["sv_deficit"] <= 0:
+            raise AssertionError("delta round: sv_deficit never launched")
+        cpu = fleet.ReplicaFleet(1000, 104, device="cpu").delta_round(
+            cols, budget=budget)
+        for name, a, b in zip(("svs", "deficit", "needed"), card[:3],
+                              cpu[:3]):
+            if a.shape != b.shape or not (a == b).all():
+                raise AssertionError(f"delta round: {name} differs")
+        for name, a in card[3].items():
+            b = cpu[3][name]
+            if a.dtype != b.dtype or not (a == b).all():
+                raise AssertionError(f"delta round: delta {name} differs")
+        if not (card[2] == 8).all() or int(card[3]["valid"].sum()) != \
+                1000 * min(budget, 8):
+            raise AssertionError("delta round: wrong deficit")
+        log(f"delta round (1000 replicas, budget {budget}): card == CPU "
+            f"field by field; {wall:.3f} s on the card; launches {counts}")
+
+
 def kernel_rows(torch, kernels, seen: dict, launches: dict,
                 max_err: dict) -> list:
-    """One timed row per kernel on the inputs one card run gave it."""
-    i32 = dict(dtype=torch.int32, device=torch.device("cuda"))
-    client, flags = seen["seg_argmax_scan"][0]
-    pos, n_out = seen["stream_scatter"][0]
-    m, bsz = client.numel(), pos.numel()
-    keep = (pos >= 0) & (pos < n_out)
-    lib_idx = pos[keep].long()
-    lib_val = torch.arange(bsz, **i32)[keep]
-    lib_out = torch.full((n_out,), -1, **i32)
+    """One timed row per kernel on the inputs one card run gave it
+    (the first call of each kernel in that run)."""
+    from crdt_tpu_torch.ops import _build
+    from crdt_tpu_torch.ops.device import pack_id
 
-    def row(name, shape, kernel, plain, library, nbytes):
-        ms, wall, src = timed(torch, kernel, 50)
-        plain_ms, plain_wall, _ = timed(torch, plain, 5)
-        lib = timed(torch, library, 50) if library else (None, None, None)
+    i32 = dict(dtype=torch.int32, device=torch.device("cuda"))
+
+    def nbytes(*ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def row(name, shape, args, library, nbytes_, ops=0):
+        kernel = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        ms, wall, src = timed(torch, lambda: kernel(*args), 50)
+        plain_ms, plain_wall, _ = timed(torch, lambda: plain(*args), 5)
+        lib = timed(torch, library, 20) if library else (None, None, None)
+        byte_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+        op_ms = ops / INT32_OPS_PER_S * 1e3
         return {
             "name": name,
             "shape": shape,
@@ -376,9 +611,10 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
             "max_abs_err": max_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
-            # each input read once, each output written once
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
+            # each input read once, each output written once; the
+            # operations at the non-tensor INT32 peak where counted
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "operations" if op_ms > byte_ms else "bytes",
             "library_ms": lib[0],
             "ms_source": src,
             "wall_ms": wall,
@@ -386,17 +622,73 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
             "library_wall_ms": lib[1],
         }
 
-    return [
-        row("seg_argmax_scan", {"M": m},
-            lambda: kernels.seg_argmax_scan(client, flags),
-            lambda: kernels.seg_argmax_scan_plain(client, flags),
-            None, 3 * 4 * m),
-        row("stream_scatter", {"B": bsz, "n_out": n_out},
-            lambda: kernels.stream_scatter(pos, n_out),
-            lambda: kernels.stream_scatter_plain(pos, n_out),
-            lambda: lib_out.index_put_((lib_idx,), lib_val),
-            4 * (bsz + n_out)),
-    ]
+    rows = []
+    if "seg_argmax_scan" in seen:
+        client, flags = seen["seg_argmax_scan"][0]
+        m = client.numel()
+        rows.append(row("seg_argmax_scan", {"M": m}, (client, flags), None,
+                        3 * 4 * m))
+    if "stream_scatter" in seen:
+        pos, n_out = seen["stream_scatter"][0]
+        bsz = pos.numel()
+        keep = (pos >= 0) & (pos < n_out)
+        lib_idx = pos[keep].long()
+        lib_val = torch.arange(bsz, **i32)[keep]
+        lib_out = torch.full((n_out,), -1, **i32)
+        rows.append(row("stream_scatter", {"B": bsz, "n_out": n_out},
+                        (pos, n_out),
+                        lambda: lib_out.index_put_((lib_idx,), lib_val),
+                        4 * (bsz + n_out)))
+    if "ds_mask" in seen:
+        args = seen["ds_mask"][0]
+        client, clock, valid, dc, ds_, de = args
+        n, d = client.numel(), dc.numel()
+        # library yardstick, right only for disjoint ranges: one
+        # searchsorted over the sorted packed starts and its two gathers
+        rkey, order = torch.sort(pack_id(dc, ds_))
+        rend = pack_id(dc, de)[order]
+        ikey = pack_id(client, clock)
+
+        def library():
+            pos = torch.searchsorted(rkey, ikey, side="right") - 1
+            pc = pos.clamp(min=0)
+            return valid & (pos >= 0) & (ikey < rend[pc]) \
+                & (ikey >= rkey[pc])
+
+        rows.append(row("ds_mask", {"N": n, "D": d}, args, library,
+                        nbytes(*args) + n))
+        # the search kernel alone, on ranges sorted once outside the
+        # timed calls: the rest of the wrapper's time is its glue
+        lib = _build.library("ds_mask")
+        rc, rs, run_max = kernels.ds_sorted_ranges(dc, ds_, de)
+        ci = client.contiguous()
+        ti = clock.to(torch.int64).contiguous()
+        vi = valid.contiguous()
+        out = torch.empty(n, dtype=torch.bool, device=client.device)
+        # the stream is read at each call: a graph captures on its own
+        rows[-1]["search_ms"] = timed(torch, lambda: _build.check(
+            lib.ds_mask_launch(ci.data_ptr(), ti.data_ptr(), vi.data_ptr(),
+                               n, rc.data_ptr(), rs.data_ptr(),
+                               run_max.data_ptr(), d, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream),
+            "ds_mask search"), 50)[0]
+    if "sv_deficit" in seen:
+        (svs,) = seen["sv_deficit"][0]
+        r, c = svs.shape
+        x = svs.double()
+        rsum = x.sum(dim=1)
+
+        def library():
+            # sum_c max(a - b, 0) = (sum_c |a - b| + sum_c (a - b)) / 2
+            return (torch.cdist(x, x, p=1) + rsum[:, None]
+                    - rsum[None, :]) / 2
+
+        # the least work: sum_c max(a - b, 0) = sum_c max(a, b) - rowsum_b,
+        # one max and one add a term, one R x C row sum, R^2 subtractions
+        rows.append(row("sv_deficit", {"R": r, "C": c}, (svs,), library,
+                        nbytes(svs) + 8 * r * r,
+                        ops=2 * r * r * c + r * c + r * r))
+    return rows
 
 
 if __name__ == "__main__":

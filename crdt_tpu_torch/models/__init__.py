@@ -1,4 +1,5 @@
-"""Product pipelines over the ops: the cold trace replay."""
+"""Product pipelines over the ops: the cold trace replay and the
+replica-fleet round."""
 
 from crdt_tpu_torch.models.replay import ReplayResult, replay_trace
 

@@ -15,13 +15,18 @@ sync backlog) end to end:
      plain-JSON ``crdt.c`` cache, tombstones applied;
   5. compact: one snapshot blob (the log squashed).
 
+``replay_trace(blobs, route="fleet", device=...)`` converges the same
+blobs as ONE replica-fleet gossip + merge round instead
+(:mod:`crdt_tpu_torch.models.fleet`), with steps 4 and 5 shared.
+
 Cache and snapshot are byte-identical to the reference's on the same
-blobs (tests/test_torch_replay.py). Three inputs need the reference's
-scalar host machinery (``ops/yata.py``, ``core/engine.py``), which a
-later slice ports; until then each raises ``NotImplementedError``
-naming its ROADMAP.md item instead of giving a wrong answer: a union
-the packed stager cannot express, a plan with hard rows, and map rows
-that carry right origins.
+blobs (tests/test_torch_replay.py, tests/test_torch_fleet.py). Some
+inputs need the reference's scalar host machinery (``ops/yata.py``,
+``core/engine.py``), which a later slice ports; until then each raises
+``NotImplementedError`` naming its ROADMAP.md item instead of giving a
+wrong answer: a union the packed stager cannot express, a plan with
+hard rows, map rows that carry right origins, and (on the fleet route)
+sequence rows that carry right origins.
 """
 
 from __future__ import annotations
@@ -109,15 +114,50 @@ def gather(dec: Dict, ds: DeleteSet, handle):
     (their exact conflict-scan ranks ride the client column)."""
     with get_tracer().span("gather"):
         win_rows, seq_orders = _assemble_packed(dec, handle[1])
-        return finish_assembly(dec, ds, win_rows, seq_orders)
+        return finish_assembly(dec, ds, win_rows, seq_orders,
+                               blanket_rights=False)
 
 
-def finish_assembly(dec: Dict, ds: DeleteSet, win_rows, seq_orders):
-    """Assembly tail: crafted-map-chain check, then winner
-    visibility."""
+def finish_assembly(dec: Dict, ds: DeleteSet, win_rows, seq_orders,
+                    *, blanket_rights: bool = True):
+    """Shared assembly tail of every convergence engine (packed,
+    fleet): the blanket right-origin detour, then the crafted-map-chain
+    check and winner visibility.
+
+    ``blanket_rights`` is for producers that ignore right origins
+    entirely (the fleet round): the reference re-orders every parent
+    with a right-bearing sequence row through its scalar host YATA,
+    which is not ported yet, so such rows raise. The packed converge
+    ordered its expressible rights at staging and passes False."""
+    if blanket_rights:
+        rc_col, kid_col = dec["right_client"], dec["key_id"]
+        right_seq_rows = np.flatnonzero((rc_col >= 0) & (kid_col < 0))
+        if len(right_seq_rows):
+            raise NotImplementedError(
+                f"{len(right_seq_rows)} sequence row(s) carry right "
+                "origins, which this engine leaves to the scalar YATA "
+                f"host detour, not ported yet ({_FALLBACK_ITEM})"
+            )
     win_rows = _fix_map_chains_with_rights(dec, win_rows)
     win_vis = visible_mask(dec, win_rows, ds)
     return win_rows, win_vis, seq_orders
+
+
+def segment_key(pa: np.ndarray, kid: np.ndarray) -> np.ndarray:
+    """ONE packed (parent, key) segment identity: parents shifted past
+    the 2^20 key space; the no-key sentinel occupies its own slot per
+    parent."""
+    pa = np.asarray(pa, np.int64)
+    kid = np.asarray(kid, np.int64)
+    return (pa << 21) | np.where(kid >= 0, kid, 1 << 20)
+
+
+def segment_bound(cols: Dict[str, np.ndarray]) -> int:
+    """Tight distinct-segment count for the convergence kernels:
+    distinct (map parent, key) pairs + sequence parents."""
+    if not len(np.asarray(cols["parent_a"])):
+        return 1
+    return len(np.unique(segment_key(cols["parent_a"], cols["key_id"])))
 
 
 def _assemble_packed(dec: Dict, res):
@@ -302,10 +342,39 @@ def compact(dec: Dict, ds: DeleteSet) -> bytes:
         return native.encode_from_columns_any(dec, ds)
 
 
-def replay_trace(blobs: Sequence[bytes], *, device="cuda") -> ReplayResult:
+# the reference's other routes and the ROADMAP.md items that port them
+_UNPORTED_ROUTES = {
+    "host": "queue A item 3a (replay host fallbacks)",
+    "auto": "queue A item 5 (incremental engine)",
+    "replica": "queue A item 5 (incremental engine)",
+    "stream": "queue A item 4 (streaming executor)",
+}
+
+
+def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
+                 device="cuda") -> ReplayResult:
     """One-shot: blobs in, converged cache + compacted snapshot out,
     converged on ``device`` (the card unless the caller asks for the
-    CPU; with no card present a CUDA request raises)."""
+    CPU; with no card present a CUDA request raises).
+
+    ``route`` picks the convergence engine: ``"device"`` (default) the
+    packed one-dispatch converge of the whole union; ``"fleet"`` treats
+    each blob as one replica's pending broadcast and converges the set
+    as ONE gossip + merge round
+    (:func:`crdt_tpu_torch.models.fleet.fleet_replay`). The reference's
+    other routes raise ``NotImplementedError`` naming their ROADMAP.md
+    item."""
+    if route in _UNPORTED_ROUTES:
+        raise NotImplementedError(
+            f"route={route!r} is not ported yet "
+            f"(ROADMAP.md {_UNPORTED_ROUTES[route]})"
+        )
+    if route == "fleet":
+        from crdt_tpu_torch.models.fleet import fleet_replay
+
+        return fleet_replay(blobs, device=device)
+    if route != "device":
+        raise ValueError(f"unknown route {route!r}")
     dev = resolve_device(device)
     dec = decode(blobs)
     cols, ds = stage(dec)

@@ -40,6 +40,12 @@ KERNELS: Dict[str, tuple] = {
     "stream_scatter": ("stream_scatter.cu", {
         "stream_scatter_launch": (_I, (_P, _I, _P, _I, _P)),
     }),
+    "ds_mask": ("ds_mask.cu", {
+        "ds_mask_launch": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P)),
+    }),
+    "sv_deficit": ("sv_deficit.cu", {
+        "sv_deficit_launch": (_I, (_P, _I, _I, _P, _P)),
+    }),
 }
 
 

@@ -157,6 +157,80 @@ def pack_id(client: torch.Tensor, clock: torch.Tensor) -> torch.Tensor:
     return torch.where(client < 0, torch.full_like(packed, NULLI), packed)
 
 
+def unpack_id(packed: torch.Tensor):
+    """Inverse of :func:`pack_id`: (client int32, clock int64), null
+    (negative) ids -> (-1, -1)."""
+    null = packed < 0
+    client = torch.where(null, NULLI, packed >> _CLOCK_BITS).to(torch.int32)
+    clock = torch.where(null, NULLI, packed & ((1 << _CLOCK_BITS) - 1))
+    return client, clock.to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# sorted-order primitives (the reference's method="sort" searches and
+# its scatter-free permutation inverse were TPU workarounds; the results
+# here are the same)
+# ---------------------------------------------------------------------------
+
+
+def lexsort(keys) -> torch.Tensor:
+    """argsort by multiple keys; keys[0] is most significant. Iterated
+    stable argsorts, least significant first."""
+    order = torch.argsort(keys[-1], stable=True)
+    for k in reversed(keys[:-1]):
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def dense_ranks_sorted(sorted_key: torch.Tensor) -> torch.Tensor:
+    """Dense 0..S-1 rank per element of an ALREADY SORTED key array."""
+    new_seg = torch.zeros(sorted_key.shape[0], dtype=torch.int32,
+                          device=sorted_key.device)
+    new_seg[1:] = (sorted_key[1:] != sorted_key[:-1]).to(torch.int32)
+    return torch.cumsum(new_seg, 0).to(torch.int32)
+
+
+def searchsorted_ids(sorted_ids: torch.Tensor,
+                     query: torch.Tensor) -> torch.Tensor:
+    """Index of each query id in sorted_ids, or NULLI if absent.
+    Clamps the found position as the reference's gather does."""
+    n = sorted_ids.shape[0]
+    if n == 0:
+        return torch.full(query.shape, NULLI, dtype=torch.int32,
+                          device=query.device)
+    pos = torch.searchsorted(sorted_ids, query.to(sorted_ids.dtype))
+    pos_c = pos.clamp(0, n - 1)
+    found = (sorted_ids[pos_c] == query) & (query >= 0)
+    return torch.where(found, pos_c, NULLI).to(torch.int32)
+
+
+def scatter_perm(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """out[perm[i]] = vals[i] for a PERMUTATION perm of 0..N-1."""
+    out = torch.empty_like(vals)
+    out[perm.long()] = vals
+    return out
+
+
+def run_edge_lookup(slots_sorted: torch.Tensor, size: int, *, side: str):
+    """For each dense slot j in [0, size): the index into `slots_sorted`
+    of the FIRST (side='left') or LAST (side='right') element equal to
+    j, or NULLI when j is absent; plus the found mask. `slots_sorted`
+    must be ascending. The position is clamped as the reference's
+    gather does."""
+    n = slots_sorted.shape[0]
+    dev = slots_sorted.device
+    if n == 0:
+        return (torch.full((size,), NULLI, dtype=torch.int32, device=dev),
+                torch.zeros(size, dtype=torch.bool, device=dev))
+    iota = torch.arange(size, dtype=slots_sorted.dtype, device=dev)
+    pos = torch.searchsorted(slots_sorted, iota, side=side)
+    if side == "right":
+        pos = pos - 1
+    pos_c = pos.clamp(0, n - 1)
+    found = slots_sorted[pos_c] == iota
+    return torch.where(found, pos_c, NULLI).to(torch.int32), found
+
+
 def _round_cap(n: int) -> int:
     """ceil(log2 n) + 1: enough doubling rounds for any path in an
     n-node forest."""
@@ -198,23 +272,41 @@ def pointer_double(f: torch.Tensor,
 _W_DIST = (1 << 32) - 1
 
 
-def wyllie_dist(succ: torch.Tensor, rounds: int) -> torch.Tensor:
+def wyllie_dist(succ: torch.Tensor, rounds: int | None) -> torch.Tensor:
     """Distance-to-terminal along ``succ`` for every node (terminals
     are self-loops), by pointer doubling with the (pointer, distance)
     pair packed into ONE int64 per node: one random gather a round.
 
-    Runs ``min(rounds, ceil(log2 m) + 1)`` rounds (the reference's
-    fixed ``fori_loop`` form); callers guarantee 2**rounds >= the
-    longest path. Gathers: the pointer half holds node indices in
-    [0, m) by construction."""
+    With ``rounds`` given, runs ``min(rounds, ceil(log2 m) + 1)``
+    rounds (the reference's fixed ``fori_loop`` form); callers
+    guarantee 2**rounds >= the longest path. With ``rounds=None`` it
+    reproduces the reference's early-exit while-loop without a host
+    sync: every one of the ``ceil(log2 m) + 1`` rounds runs, but a
+    device flag freezes the state from the first round in which no
+    pointer moved. (Unlike in :func:`pointer_double`, rounds past that
+    point are not no-ops on a cyclic input: a cycle whose length is a
+    power of two brings every pointer home while its distances keep
+    growing.) Gathers: the pointer half holds node indices in [0, m)
+    by construction."""
     m = succ.shape[0]
     idx = torch.arange(m, dtype=torch.int32, device=succ.device)
     dist0 = (succ != idx).to(torch.int64)
     comb = (succ.to(torch.int64) << 32) | dist0
-    for _ in range(min(rounds, _round_cap(m))):
-        c2 = comb[comb >> 32]
+    cap = _round_cap(m)
+    if rounds is not None:
+        for _ in range(min(rounds, cap)):
+            c2 = comb[comb >> 32]
+            newd = (comb & _W_DIST) + (c2 & _W_DIST)
+            comb = (c2 & ~_W_DIST) | newd
+        return (comb & _W_DIST).to(torch.int32)
+    ptr = comb >> 32
+    active = (ptr[ptr] != ptr).any()
+    for _ in range(cap):
+        ptr = comb >> 32
+        c2 = comb[ptr]
         newd = (comb & _W_DIST) + (c2 & _W_DIST)
-        comb = (c2 & ~_W_DIST) | newd
+        comb = torch.where(active, (c2 & ~_W_DIST) | newd, comb)
+        active = active & ((c2 >> 32) != ptr).any()
     return (comb & _W_DIST).to(torch.int32)
 
 
@@ -225,7 +317,7 @@ def dfs_ranks(
     first_child: torch.Tensor,  # [B+num_roots] int32 first child per node
     is_item: torch.Tensor,      # [B] bool real tree members
     num_roots: int,
-    rank_rounds: int,
+    rank_rounds: int | None,
 ) -> torch.Tensor:
     """Distance-to-end of the DFS traversal for every node (items and
     the virtual roots appended after them) via successor pointer
@@ -235,7 +327,8 @@ def dfs_ranks(
     next sibling of the nearest ancestor (itself included) that has
     one — the climb past last-child chains, itself a pointer doubling.
     ``rank_rounds`` (host-computed from the largest segment) fixes both
-    doubling loops' round counts."""
+    doubling loops' round counts; ``None`` gives the reference's
+    early-exit loops (see :func:`wyllie_dist`)."""
     B = parent.shape[0]
     m = B + num_roots
     dev = parent.device

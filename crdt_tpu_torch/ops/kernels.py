@@ -1,12 +1,15 @@
-"""The converge hot path's two kernels: wrappers and plain versions.
+"""The port's four hand-written kernels: wrappers and plain versions.
 
-The port's counterpart of the converge half of
-``crdt_tpu.ops.pallas_kernels``:
+The port's counterpart of ``crdt_tpu.ops.pallas_kernels``:
 
 - :func:`seg_argmax_scan` — segmented inclusive argmax over contiguous
   runs, the LWW map-winner scan (``csrc/seg_argmax_scan.cu``);
 - :func:`stream_scatter` — the document-order scatter
-  ``out[pos[i]] = i`` (``csrc/stream_scatter.cu``).
+  ``out[pos[i]] = i`` (``csrc/stream_scatter.cu``);
+- :func:`ds_mask` — delete-set membership of every item
+  (``csrc/ds_mask.cu``);
+- :func:`sv_deficit` — the pairwise state-vector deficit, the
+  anti-entropy plan (``csrc/sv_deficit.cu``).
 
 Each wrapper checks its input and dispatches on where the tensor
 lies: a CPU tensor takes the plain PyTorch version beside it (the CPU
@@ -15,8 +18,10 @@ current stream or raises — there is no fallback from the card to the
 plain version. Each wrapper counts its launches in ``.launches``,
 incremented where the kernel is launched and nowhere else.
 
-Unlike the TPU kernels, neither has a width guard: the CUDA scan tiles
-the block and carries across tiles, so any length runs on the card.
+Unlike the TPU kernels, none has a width guard or a crossover: the
+CUDA scan tiles the block and carries across tiles, ``ds_mask`` binary
+searches the ranges for any D, and ``sv_deficit`` accumulates in int64
+for any clocks, so every size runs on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from crdt_tpu_torch.ops import _build
+from crdt_tpu_torch.ops.device import dense_ranks_sorted, lexsort
 
 NULL_I32 = -1
 
@@ -142,7 +148,175 @@ def stream_scatter(pos: torch.Tensor, n_out: int) -> torch.Tensor:
 stream_scatter.launches = 0
 
 
-WRAPPERS = (seg_argmax_scan, stream_scatter)
+# ---------------------------------------------------------------------------
+# delete-set membership
+# ---------------------------------------------------------------------------
+
+
+def ds_sorted_ranges(d_client: torch.Tensor, d_start: torch.Tensor,
+                     d_end: torch.Tensor):
+    """Glue on the D ranges shared by both versions of :func:`ds_mask`:
+    the ranges sorted by (client, start), compared lexicographically in
+    int64, and the running max of ``end`` over each client's sorted
+    ranges. The running max is one ``torch.cummax`` over
+    ``client_rank * D + end_rank``: clients never decrease along the
+    sorted order, so the lexicographic prefix max keeps the current
+    client and its largest end so far, and ranks (< D) keep the key
+    exact whatever the clock values. Returns (client, start, run_max),
+    each [D] int64."""
+    dc = d_client.to(torch.int64)
+    order = lexsort([dc, d_start.to(torch.int64)])
+    rc = dc[order]
+    rs = d_start.to(torch.int64)[order]
+    re = d_end.to(torch.int64)[order]
+    d = rc.shape[0]
+    if d == 0:
+        return rc, rs, re
+    ends, by_end = torch.sort(re)
+    end_rank = torch.empty_like(by_end)
+    end_rank[by_end] = torch.arange(d, device=re.device)
+    key = dense_ranks_sorted(rc).to(torch.int64) * d + end_rank
+    run_max = ends[torch.cummax(key, 0).values % d]
+    return rc, rs, run_max
+
+
+def ds_mask_plain(client: torch.Tensor, clock: torch.Tensor,
+                  valid: torch.Tensor, d_client: torch.Tensor,
+                  d_start: torch.Tensor,
+                  d_end: torch.Tensor) -> torch.Tensor:
+    """Plain version: the kernel's algorithm as whole-tensor torch ops
+    — per item, a binary search (vectorized over the items, one round
+    per halving) for the last range whose (client, start) is <= the
+    item's (client, clock), then the same-client and running-max-end
+    test."""
+    rc, rs, run_max = ds_sorted_ranges(d_client, d_start, d_end)
+    d = rc.shape[0]
+    ci = client.to(torch.int64)
+    ti = clock.to(torch.int64)
+    if d == 0:
+        return torch.zeros_like(valid, dtype=torch.bool)
+    lo = torch.zeros_like(ci)
+    hi = torch.full_like(ci, d)
+    for _ in range(d.bit_length()):
+        live = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor").clamp(max=d - 1)
+        cm = rc[mid]
+        le = (cm < ci) | ((cm == ci) & (rs[mid] <= ti))
+        lo = torch.where(live & le, mid + 1, lo)
+        hi = torch.where(live & ~le, mid, hi)
+    p = lo - 1
+    pc = p.clamp(min=0)
+    return (valid.to(torch.bool) & (p >= 0) & (rc[pc] == ci)
+            & (run_max[pc] > ti))
+
+
+def ds_mask(client: torch.Tensor, clock: torch.Tensor, valid: torch.Tensor,
+            d_client: torch.Tensor, d_start: torch.Tensor,
+            d_end: torch.Tensor) -> torch.Tensor:
+    """Delete-set membership: [N] bool, True where ``valid[i]`` and
+    some range d has ``client[i] == d_client[d]`` and
+    ``d_start[d] <= clock[i] < d_end[d]`` — the TPU kernel's dense
+    semantics, exact over int64 and for overlapping ranges too.
+
+    ``client`` [N] int32, ``clock`` [N] int64 (or int32), ``valid``
+    [N] bool; the D ranges in any integer dtype, in any order (null
+    fillers with client -1 and start = end match nothing). Any D runs
+    on the card, 0 included."""
+    _check_i32("client", client)
+    n = client.shape[0]
+    if clock.shape != (n,) or valid.shape != (n,):
+        raise ValueError("client, clock and valid must be [N]")
+    if not (d_client.shape == d_start.shape == d_end.shape) \
+            or d_client.dim() != 1:
+        raise ValueError("d_client, d_start and d_end must be [D]")
+    tensors = (client, clock, valid, d_client, d_start, d_end)
+    if any(t.device != client.device for t in tensors):
+        raise ValueError("ds_mask inputs must share one device")
+    if any(t.is_floating_point() or t.is_complex()
+           for t in (clock, d_client, d_start, d_end)):
+        raise ValueError("ds_mask clocks and ranges must be integers")
+    if not client.is_cuda:
+        return ds_mask_plain(*tensors)
+    if n >= 1 << 31 or d_client.shape[0] >= 1 << 31:
+        raise ValueError("ds_mask takes fewer than 2**31 items and ranges")
+    lib = _build.library("ds_mask")
+    rc, rs, run_max = ds_sorted_ranges(d_client, d_start, d_end)
+    client = client.contiguous()
+    clock = clock.to(torch.int64).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    out = torch.empty(n, dtype=torch.bool, device=client.device)
+    if n == 0:
+        return out
+    _build.check(lib.ds_mask_launch(
+        client.data_ptr(), clock.data_ptr(), valid.data_ptr(), n,
+        rc.data_ptr(), rs.data_ptr(), run_max.data_ptr(), rc.shape[0],
+        out.data_ptr(), _stream_handle(client),
+    ), "ds_mask launch")
+    ds_mask.launches += 1
+    return out
+
+
+ds_mask.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# pairwise state-vector deficit (the anti-entropy plan)
+# ---------------------------------------------------------------------------
+
+# row chunk of the plain version: at most ~16M live [chunk, R, C] terms
+_SV_PLAIN_TERMS = 1 << 24
+
+
+def deficit_rows(rows: torch.Tensor, svs: torch.Tensor) -> torch.Tensor:
+    """[B, C] x [R, C] -> [B, R] int64: ``sum_c max(rows[b, c] -
+    svs[r, c], 0)``, by a scan over chunks of ``rows`` that never
+    builds [B, R, C] (the reference's ``exact_missing_rows`` takes one
+    row a step; a chunk of rows is the same sum)."""
+    b, c = rows.shape
+    r = svs.shape[0]
+    out = torch.empty((b, r), dtype=torch.int64, device=svs.device)
+    s = svs.to(torch.int64)
+    step = max(1, _SV_PLAIN_TERMS // max(r * c, 1))
+    for i0 in range(0, b, step):
+        blk = rows[i0:i0 + step].to(torch.int64)
+        out[i0:i0 + step] = (blk[:, None, :] - s[None, :, :]).clamp_min(
+            0).sum(dim=2)
+    return out
+
+
+def sv_deficit_plain(svs: torch.Tensor) -> torch.Tensor:
+    """Plain version: :func:`deficit_rows` of every row against all."""
+    return deficit_rows(svs, svs)
+
+
+def sv_deficit(svs: torch.Tensor) -> torch.Tensor:
+    """Pairwise deficit of [R, C] int64 state vectors:
+    ``out[i, j] = sum_c max(svs[i, c] - svs[j, c], 0)``, [R, R] int64,
+    exact in int64 for any clock values (no centring, no envelope)."""
+    if svs.dim() != 2 or svs.dtype != torch.int64:
+        raise ValueError(f"svs must be a 2-D int64 tensor, got {svs.dtype} "
+                         f"of shape {tuple(svs.shape)}")
+    if not svs.is_cuda:
+        return sv_deficit_plain(svs)
+    r, c = svs.shape
+    if r >= 1 << 31 or c >= 1 << 31:
+        raise ValueError("sv_deficit takes fewer than 2**31 rows and columns")
+    lib = _build.library("sv_deficit")
+    svs = svs.contiguous()
+    out = torch.empty((r, r), dtype=torch.int64, device=svs.device)
+    if r == 0:
+        return out
+    _build.check(lib.sv_deficit_launch(
+        svs.data_ptr(), r, c, out.data_ptr(), _stream_handle(svs),
+    ), "sv_deficit launch")
+    sv_deficit.launches += 1
+    return out
+
+
+sv_deficit.launches = 0
+
+
+WRAPPERS = (seg_argmax_scan, stream_scatter, ds_mask, sv_deficit)
 
 
 def reset_launches() -> None:

@@ -1,11 +1,13 @@
-"""The port's converge kernels (crdt_tpu_torch.ops.kernels) on the CPU.
+"""The port's kernels (crdt_tpu_torch.ops.kernels) on the CPU.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; these
 tests hold that plain version against the reference's Pallas kernel in
 interpret mode and against its jnp oracle, position by position, with
-exact int32 equality: random run layouts, ties, padding tails, and
-dropped (negative, past-the-end) scatter targets. The CUDA kernels
-themselves are held against the same plain versions on the card by
+exact integer equality: random run layouts, ties, padding tails,
+dropped (negative, past-the-end) scatter targets, disjoint and
+overlapping delete ranges, and state vectors on both sides of the
+reference deficit kernel's 2**31 envelope. The CUDA kernels themselves
+are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
 
@@ -14,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from crdt_tpu.ops import deleteset as ref_ds
 from crdt_tpu.ops import pallas_kernels as pk
+from crdt_tpu.ops import statevec as ref_sv
 from crdt_tpu_torch.ops import kernels
 
 
@@ -147,8 +151,17 @@ class TestWrappers:
                            kernels.seg_argmax_scan_plain(client, flags))
         assert torch.equal(kernels.stream_scatter(client, 10),
                            kernels.stream_scatter_plain(client, 10))
+        d = torch.tensor([2], dtype=torch.int32)
+        assert torch.equal(
+            kernels.ds_mask(client, client.long(), flags > 0, d, d, d + 1),
+            kernels.ds_mask_plain(client, client.long(), flags > 0, d, d,
+                                  d + 1))
+        svs = torch.arange(12, dtype=torch.int64).reshape(3, 4)
+        assert torch.equal(kernels.sv_deficit(svs),
+                           kernels.sv_deficit_plain(svs))
         assert kernels.launch_counts() == {
-            "seg_argmax_scan": 0, "stream_scatter": 0,
+            "seg_argmax_scan": 0, "stream_scatter": 0, "ds_mask": 0,
+            "sv_deficit": 0,
         }
 
     @pytest.mark.parametrize("bad", [
@@ -160,3 +173,159 @@ class TestWrappers:
             kernels.seg_argmax_scan(bad, bad)
         with pytest.raises(ValueError):
             kernels.stream_scatter(bad, 4)
+
+
+def _items(rng, n, base, clients=6):
+    """[N] item columns: clients (some -1), clocks from ``base``, and a
+    random valid mask."""
+    client = rng.integers(-1, clients, n).astype(np.int32)
+    clock = (base + rng.integers(0, 400, n)).astype(np.int64)
+    valid = rng.random(n) < 0.8
+    return client, clock, valid
+
+
+def _ranges(rng, d, base, clients=6, *, disjoint, nulls=0):
+    """[D] delete ranges (client, start, end), shuffled, plus ``nulls``
+    null fillers (-1, -1, -1). Disjoint ranges are cut per client from
+    one sorted set of breakpoints; overlapping ones are random, nested
+    and crossing ones included."""
+    if disjoint:
+        rc = rng.integers(0, clients, d)
+        rs = np.empty(d, np.int64)
+        re = np.empty(d, np.int64)
+        for c in np.unique(rc):
+            idx = np.flatnonzero(rc == c)
+            pts = np.sort(rng.choice(np.arange(0, 800), 2 * len(idx),
+                                     replace=False))
+            rs[idx] = base + pts[0::2]
+            re[idx] = base + pts[1::2]
+    else:
+        rc = rng.integers(0, clients, d)
+        rs = base + rng.integers(0, 400, d)
+        re = rs + rng.integers(0, 120, d)
+    perm = rng.permutation(d)
+    cols = [np.r_[x[perm], np.full(nulls, -1)].astype(t)
+            for x, t in ((rc, np.int32), (rs, np.int64), (re, np.int64))]
+    return tuple(cols)
+
+
+def _mask_all(items, ranges):
+    """(port wrapper on CPU, reference interpret kernel, reference jnp
+    search)."""
+    client, clock, valid = items
+    dc, ds_, de = ranges
+    t = [torch.from_numpy(np.asarray(x)) for x in (*items, *ranges)]
+    got = kernels.ds_mask(*t).numpy()
+    j = [jnp.asarray(x) for x in (*items, *ranges)]
+    interp = np.asarray(pk.ds_mask_static(*j, interpret=True))
+    search = np.asarray(ref_ds.apply_mask_static(*j, mode="jnp"))
+    return got, interp, search
+
+
+class TestDsMask:
+    @pytest.mark.parametrize("n,d,base", [
+        (1, 1, 0),
+        (300, 5, 0),
+        (1000, 64, 1 << 31),         # at the reference's crossover
+        (1000, 65, (1 << 31) - 200),  # past it, clocks around 2**31
+        (2049, 300, (1 << 40) - 2000),  # clocks near the packing bound
+    ])
+    def test_disjoint_ranges_match_both_reference_paths(self, n, d, base):
+        rng = np.random.default_rng(n + d)
+        items = _items(rng, n, base)
+        ranges = _ranges(rng, d, base, disjoint=True, nulls=7)
+        got, interp, search = _mask_all(items, ranges)
+        assert got.dtype == np.bool_
+        assert (got == interp).all()
+        assert (got == search).all()
+        if n > 100:
+            assert got.any() and not got.all()
+
+    @pytest.mark.parametrize("d,base", [(3, 0), (40, 1 << 33), (200, 0)])
+    def test_overlapping_ranges_match_the_dense_kernel(self, d, base):
+        # overlapping and nested ranges: the port keeps the TPU
+        # kernel's dense meaning (ROADMAP.md section C)
+        rng = np.random.default_rng(d)
+        items = _items(rng, 1500, base)
+        ranges = _ranges(rng, d, base, disjoint=False, nulls=3)
+        got, interp, _ = _mask_all(items, ranges)
+        assert (got == interp).all()
+
+    def test_nested_range_the_search_path_misses(self):
+        # one long range covering a short later one: the reference's
+        # binary search looks only at the last range starting at or
+        # before the clock, so it misses clock 8; the dense kernel and
+        # the port mark it
+        items = (np.asarray([1, 1, 1], np.int32),
+                 np.asarray([2, 6, 8], np.int64), np.ones(3, bool))
+        ranges = (np.asarray([1, 1], np.int32), np.asarray([0, 5], np.int64),
+                  np.asarray([10, 7], np.int64))
+        got, interp, search = _mask_all(items, ranges)
+        assert list(got) == list(interp) == [True, True, True]
+        assert list(search) == [True, True, False]
+
+    def test_no_ranges_and_all_null_ranges(self):
+        rng = np.random.default_rng(3)
+        client, clock, valid = _items(rng, 200, 0)
+        t = [torch.from_numpy(x) for x in (client, clock, valid)]
+        empty = torch.zeros(0, dtype=torch.int64)
+        assert not kernels.ds_mask(*t, empty.int(), empty, empty).any()
+        null = torch.full((512,), -1, dtype=torch.int64)
+        assert not kernels.ds_mask(*t, null.int(), null, null).any()
+
+    def test_sorted_ranges_running_max(self):
+        dc = torch.tensor([2, 1, 1, 2, 1], dtype=torch.int32)
+        ds_ = torch.tensor([0, 9, 0, 5, 3], dtype=torch.int64)
+        de = torch.tensor([8, 10, 20, 6, 4], dtype=torch.int64)
+        rc, rs, run_max = kernels.ds_sorted_ranges(dc, ds_, de)
+        assert rc.tolist() == [1, 1, 1, 2, 2]
+        assert rs.tolist() == [0, 3, 9, 0, 5]
+        assert run_max.tolist() == [20, 20, 20, 8, 8]
+
+
+def _svs(rng, r, c, base, spread):
+    return (base + rng.integers(0, spread, (r, c))).astype(np.int64)
+
+
+class TestSvDeficit:
+    @pytest.mark.parametrize("r,c", [(1, 1), (7, 3), (9, 128), (64, 130),
+                                     (65, 5)])
+    def test_inside_the_reference_envelope(self, r, c):
+        # summed column spread < 2**31: the reference's i32 tiles run
+        rng = np.random.default_rng(r * 1000 + c)
+        svs = _svs(rng, r, c, 1 << 40, 1000)
+        got = kernels.sv_deficit(torch.from_numpy(svs)).numpy()
+        interp = np.asarray(pk.sv_deficit_static(jnp.asarray(svs),
+                                                 interpret=True))
+        exact = np.asarray(ref_sv.exact_missing(jnp.asarray(svs)))
+        assert got.dtype == np.int64
+        assert (got == interp).all() and (got == exact).all()
+
+    @pytest.mark.parametrize("r,c", [(5, 3), (33, 40)])
+    def test_past_the_reference_envelope(self, r, c):
+        # one replica lags the rest by ~2**31 clocks: the reference
+        # takes its exact fallback, the port's int64 sum needs none
+        rng = np.random.default_rng(r + c)
+        svs = _svs(rng, r, c, 0, 50)
+        svs[0] += 1 << 32
+        got = kernels.sv_deficit(torch.from_numpy(svs)).numpy()
+        interp = np.asarray(pk.sv_deficit_static(jnp.asarray(svs),
+                                                 interpret=True))
+        assert (got == interp).all()
+        assert got[0].max() >= 1 << 32
+
+    def test_zero_and_identical_rows(self):
+        svs = np.zeros((6, 4), np.int64)
+        svs[3:] = [5, 0, 7, 1]
+        got = kernels.sv_deficit(torch.from_numpy(svs)).numpy()
+        exact = np.asarray(ref_sv.exact_missing(jnp.asarray(svs)))
+        assert (got == exact).all()
+        assert (np.diag(got) == 0).all() and got[3, 0] == 13
+
+    def test_plain_chunks_rows(self, monkeypatch):
+        monkeypatch.setattr(kernels, "_SV_PLAIN_TERMS", 7)
+        rng = np.random.default_rng(4)
+        svs = _svs(rng, 11, 3, 0, 30)
+        got = kernels.sv_deficit_plain(torch.from_numpy(svs)).numpy()
+        exact = np.asarray(ref_sv.exact_missing(jnp.asarray(svs)))
+        assert (got == exact).all()
