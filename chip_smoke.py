@@ -50,7 +50,7 @@ from contextlib import contextmanager
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
-# integer operations outside the tensor cores: 64 INT32 lanes per SM
+# INT32 instructions outside the tensor cores: 64 INT32 lanes per SM
 # (NVIDIA H100 Tensor Core GPU architecture white paper) x 132 SMs x
 # the 1.98 GHz boost clock (H100 SXM data sheet)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -450,6 +450,9 @@ def main() -> int:
     for label, seen in card_inputs.items():
         rows = kernel_rows(torch, kernels, seen, launches, max_err)
         log(f"kernel times ({label}): " + json.dumps(rows))
+        log(f"ds_mask ({label}): device activities of 10 wrapper calls "
+            + json.dumps(ds_mask_activities(torch, kernels,
+                                            seen["ds_mask"][0])))
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -468,9 +471,11 @@ def main() -> int:
 
 def ds_edge_cases(torch, dev, ri, hold_kernel) -> None:
     """``ds_mask`` on the card against its plain version: no ranges,
-    all-null ranges, D around the reference's old crossover (64) and
-    beyond shared memory, overlapping and nested ranges, clocks past
-    2**31 and near 2**40, invalid rows, N not a multiple of a block."""
+    all-null ranges, D around the reference's old crossover (64) and up
+    to the 1000x1600 run's 131,072, shuffled (sorted on the card) and in
+    search order (not sorted), overlapping and nested ranges, clocks
+    past 2**31 and near 2**40, invalid rows, N not a multiple of a
+    block."""
     i64 = dict(dtype=torch.int64, device=dev)
 
     def items(n, base, span, clients):
@@ -479,13 +484,17 @@ def ds_edge_cases(torch, dev, ri, hold_kernel) -> None:
         valid = ri(0, 5, n) > 0
         return client, clock, valid
 
-    def disjoint(d, base, step, clients):
+    def disjoint(d, base, step, clients, shuffle=True):
+        # client k % clients, its (k // clients)-th range in its own
+        # step window: disjoint; shuffled, or in search order (by
+        # client, then start) as the fleet's normalized delete set
         k = torch.arange(d, **i64)
         rc = (k % clients).to(torch.int32)
         rs = base + (k // clients) * step + ri(0, step // 2, d, torch.int64)
         re = rs + ri(1, step // 2, d, torch.int64)
-        perm = torch.randperm(d, device=dev)
-        return rc[perm], rs[perm], re[perm]
+        order = (torch.randperm(d, device=dev) if shuffle
+                 else torch.argsort((k % clients) * d + k // clients))
+        return rc[order], rs[order], re[order]
 
     def with_nulls(ranges, nulls):
         fill = torch.full((nulls,), -1, **i64)
@@ -515,6 +524,28 @@ def ds_edge_cases(torch, dev, ri, hold_kernel) -> None:
         rs = base + ri(0, span, d, torch.int64)
         re = rs + ri(0, 4 * step, d, torch.int64)
         hold_kernel("ds_mask", *it, rc, rs, re)
+    # the fleet's layout: in search order, disjoint, 13 trailing null
+    # fillers, D in all (8,533 and 8,534 around the 200 KB bound of an
+    # earlier shared-memory staging, and the 1000x1600 run's 131,072):
+    # nothing is sorted, one or many scan tiles
+    for d, n, base in ((8533, 1_000_003, 0), (8534, 1_000_003, 1 << 33),
+                       (131_072, 2_048_000, (1 << 40) - (1 << 30))):
+        clients, step = 97, 64
+        it = items(n, base, ((d - 13) // clients + 1) * step, clients)
+        hold_kernel("ds_mask", *it, *with_nulls(
+            disjoint(d - 13, base, step, clients, shuffle=False), 13))
+    # id-sorted items, N = 1 mod 1,024 (a last search block of one
+    # item) whose last item lies just below a range of its own client,
+    # right after a search of large keys
+    big = items(1 << 20, 1 << 40, 1 << 20, 97)
+    hold_kernel("ds_mask", *big, *disjoint(4096, 1 << 40, 512, 97))
+    rc, rs, re = disjoint(4096, 0, 64, 97, shuffle=False)
+    client = rc[torch.arange(4097, device=dev) * 4096 // 4097]
+    clock = rs[torch.arange(4097, device=dev) * 4096 // 4097]
+    clock[-1] = rs[-1] - 1
+    client[-1] = rc[-1]
+    valid = torch.ones(4097, dtype=torch.bool, device=dev)
+    hold_kernel("ds_mask", client, clock, valid, rc, rs, re)
     # nested: one long range holding shorter later ones
     client = torch.ones(5, **i64).to(torch.int32)
     clock = torch.tensor([2, 6, 8, 10, 11], **i64)
@@ -547,6 +578,59 @@ def sv_edge_cases(torch, dev, g, hold_kernel) -> None:
     lag[0] += 1 << 33
     lag[:, 5] += torch.arange(1000, device=dev) << 22
     hold_kernel("sv_deficit", lag)
+    # one staged chunk (clients 32..63) outside the kernel's 2**24
+    # envelope, in the tile pairs that hold row 500 only
+    one = svs(1000, 1002, 1 << 40, 1000)
+    one[500, 40] += 1 << 25
+    hold_kernel("sv_deficit", one)
+    # staged values at the envelope's edges, relative to each tile
+    # pair's first row (a multiple of 32): -2**24 and 2**24 - 1 stay
+    # int32, -2**24 - 1 and 2**24 do not
+    edge = svs(96, 300, 7, 3)
+    for row, col, dv in ((5, 3, (1 << 24) - 1), (37, 40, 1 << 24),
+                         (10, 50, -(1 << 24)), (70, 260, -(1 << 24) - 1)):
+        edge[row, col] = edge[(row // 32) * 32, col] + dv
+    hold_kernel("sv_deficit", edge)
+    # every staged value at the envelope: int32 sums of 128 terms reach
+    # -2**31 and 2**31 - 128 between flushes
+    top = torch.zeros((96, 1002), dtype=torch.int64, device=dev)
+    top[1::2] = (1 << 24) - 1
+    hold_kernel("sv_deficit", top)
+    low = torch.zeros((96, 1002), dtype=torch.int64, device=dev)
+    low[::32] = 1 << 24
+    hold_kernel("sv_deficit", low)
+
+
+# what a ds_mask wrapper call may launch: csrc/ds_mask.cu's kernels; no
+# torch sort, scan or gather
+DS_MASK_ACTIVITIES = ("clear_words", "run_max_scan", "order_tile",
+                      "merge_runs", "ds_search")
+
+
+def ds_mask_activities(torch, kernels, args) -> dict:
+    """{activity: count} over a profiler trace of 10 ``ds_mask`` calls
+    on one run's inputs (the trace may lose some); raises on any device
+    activity that is not ``ds_mask.cu``'s own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels.ds_mask(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kernels.ds_mask(*args)
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = next((k for k in DS_MASK_ACTIVITIES if k in e.name),
+                        e.name)
+            counts[name] = counts.get(name, 0) + 1
+    foreign = sorted(k for k in counts if k not in DS_MASK_ACTIVITIES)
+    if foreign:
+        raise AssertionError(f"ds_mask launched foreign work: {foreign}")
+    return counts
 
 
 def delta_round_check(torch, fleet, kernels, synth_resident_columns) -> None:
@@ -585,7 +669,6 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
                 max_err: dict) -> list:
     """One timed row per kernel on the inputs one card run gave it
     (the first call of each kernel in that run)."""
-    from crdt_tpu_torch.ops import _build
     from crdt_tpu_torch.ops.device import pack_id
 
     i32 = dict(dtype=torch.int32, device=torch.device("cuda"))
@@ -634,10 +717,11 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
         keep = (pos >= 0) & (pos < n_out)
         lib_idx = pos[keep].long()
         lib_val = torch.arange(bsz, **i32)[keep]
-        lib_out = torch.full((n_out,), -1, **i32)
+        # like for like: the fill of the -1 holes is inside the call
         rows.append(row("stream_scatter", {"B": bsz, "n_out": n_out},
                         (pos, n_out),
-                        lambda: lib_out.index_put_((lib_idx,), lib_val),
+                        lambda: torch.full((n_out,), -1, **i32).index_put_(
+                            (lib_idx,), lib_val),
                         4 * (bsz + n_out)))
     if "ds_mask" in seen:
         args = seen["ds_mask"][0]
@@ -657,21 +741,14 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
 
         rows.append(row("ds_mask", {"N": n, "D": d}, args, library,
                         nbytes(*args) + n))
-        # the search kernel alone, on ranges sorted once outside the
-        # timed calls: the rest of the wrapper's time is its glue
-        lib = _build.library("ds_mask")
-        rc, rs, run_max = kernels.ds_sorted_ranges(dc, ds_, de)
-        ci = client.contiguous()
-        ti = clock.to(torch.int64).contiguous()
-        vi = valid.contiguous()
-        out = torch.empty(n, dtype=torch.bool, device=client.device)
-        # the stream is read at each call: a graph captures on its own
-        rows[-1]["search_ms"] = timed(torch, lambda: _build.check(
-            lib.ds_mask_launch(ci.data_ptr(), ti.data_ptr(), vi.data_ptr(),
-                               n, rc.data_ptr(), rs.data_ptr(),
-                               run_max.data_ptr(), d, out.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream),
-            "ds_mask search"), 50)[0]
+        # the search kernel alone, on ranges prepared once outside the
+        # timed calls: the rest of the wrapper's time is the preparation
+        scratch = kernels.ds_mask_prepare(dc, ds_, de)
+        # the kernel's own flag: were the run's ranges in search order,
+        # so that nothing was sorted
+        rows[-1]["ranges_in_order"] = kernels.ds_mask_in_order(scratch, d)
+        rows[-1]["search_ms"] = timed(torch, lambda: kernels.ds_mask_search(
+            client, clock, valid, d, scratch), 50)[0]
     if "sv_deficit" in seen:
         (svs,) = seen["sv_deficit"][0]
         r, c = svs.shape
@@ -683,11 +760,14 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
             return (torch.cdist(x, x, p=1) + rsum[:, None]
                     - rsum[None, :]) / 2
 
-        # the least work: sum_c max(a - b, 0) = sum_c max(a, b) - rowsum_b,
-        # one max and one add a term, one R x C row sum, R^2 subtractions
+        # the least work, in INT32 instructions: sum_c max(a - b, 0) =
+        # sum_c max(a, b) - rowsum_b, and sum_c max(a, b) is symmetric:
+        # one max and half an add a term (IADD3 adds two terms) for each
+        # of the R(R+1)/2 unordered pairs, one R x C row sum, R^2
+        # subtractions
         rows.append(row("sv_deficit", {"R": r, "C": c}, (svs,), library,
                         nbytes(svs) + 8 * r * r,
-                        ops=2 * r * r * c + r * c + r * r))
+                        ops=3 * r * (r + 1) * c // 4 + r * c + r * r))
     return rows
 
 

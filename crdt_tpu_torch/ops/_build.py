@@ -29,6 +29,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # kernel name -> (source file, {C function: (restype, argtypes)})
 KERNELS: Dict[str, tuple] = {
@@ -41,10 +42,12 @@ KERNELS: Dict[str, tuple] = {
         "stream_scatter_launch": (_I, (_P, _I, _P, _I, _P)),
     }),
     "ds_mask": ("ds_mask.cu", {
-        "ds_mask_launch": (_I, (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P)),
+        "ds_mask_scratch_words": (_L, (_I,)),
+        "ds_mask_prepare": (_I, (_P, _P, _P, _I, _P, _P)),
+        "ds_mask_search": (_I, (_P, _P, _P, _I, _I, _P, _P, _P)),
     }),
     "sv_deficit": ("sv_deficit.cu", {
-        "sv_deficit_launch": (_I, (_P, _I, _I, _P, _P)),
+        "sv_deficit_launch": (_I, (_P, _I, _I, _P, _P, _P)),
     }),
 }
 

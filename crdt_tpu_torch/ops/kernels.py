@@ -20,8 +20,10 @@ incremented where the kernel is launched and nowhere else.
 
 Unlike the TPU kernels, none has a width guard or a crossover: the
 CUDA scan tiles the block and carries across tiles, ``ds_mask`` binary
-searches the ranges for any D, and ``sv_deficit`` accumulates in int64
-for any clocks, so every size runs on the card.
+searches the ranges for any D (sorting them on the device only when
+they arrive out of order), and ``sv_deficit`` runs int32 tiles with an
+int64 path for any staged chunk outside their envelope, so every size
+runs on the card.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ from __future__ import annotations
 import torch
 
 from crdt_tpu_torch.ops import _build
-from crdt_tpu_torch.ops.device import dense_ranks_sorted, lexsort
+from crdt_tpu_torch.ops.device import lexsort
 
 NULL_I32 = -1
+_I64_MIN = -(1 << 63)
 
 
 def _check_i32(name: str, t: torch.Tensor) -> None:
@@ -153,30 +156,41 @@ stream_scatter.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _search_key(client: torch.Tensor) -> torch.Tensor:
+    """int64 whose signed order is the client's order as an UNSIGNED
+    64-bit value (the sign bit flipped): negative clients, the null
+    fillers among them, order after every real one."""
+    return client.to(torch.int64) ^ _I64_MIN
+
+
 def ds_sorted_ranges(d_client: torch.Tensor, d_start: torch.Tensor,
                      d_end: torch.Tensor):
-    """Glue on the D ranges shared by both versions of :func:`ds_mask`:
-    the ranges sorted by (client, start), compared lexicographically in
-    int64, and the running max of ``end`` over each client's sorted
-    ranges. The running max is one ``torch.cummax`` over
-    ``client_rank * D + end_rank``: clients never decrease along the
-    sorted order, so the lexicographic prefix max keeps the current
-    client and its largest end so far, and ranks (< D) keep the key
-    exact whatever the clock values. Returns (client, start, run_max),
-    each [D] int64."""
-    dc = d_client.to(torch.int64)
-    order = lexsort([dc, d_start.to(torch.int64)])
-    rc = dc[order]
-    rs = d_start.to(torch.int64)[order]
-    re = d_end.to(torch.int64)[order]
+    """The D ranges in search order, by (client compared unsigned,
+    start), with the running max of ``end`` over each client's ranges
+    so far: the preparation both versions of :func:`ds_mask` search.
+
+    Ranges already in search order (the fleet's normalized delete set
+    with its trailing null fillers) are taken as given; only ranges
+    out of order are lexsorted. The running max is a log-step
+    segmented max scan over runs of equal client, which lie together
+    in search order. Returns (client, start, run_max), each [D] int64."""
+    rc = d_client.to(torch.int64)
+    rs = d_start.to(torch.int64)
+    re = d_end.to(torch.int64)
+    key = _search_key(rc)
     d = rc.shape[0]
-    if d == 0:
-        return rc, rs, re
-    ends, by_end = torch.sort(re)
-    end_rank = torch.empty_like(by_end)
-    end_rank[by_end] = torch.arange(d, device=re.device)
-    key = dense_ranks_sorted(rc).to(torch.int64) * d + end_rank
-    run_max = ends[torch.cummax(key, 0).values % d]
+    in_order = ((key[1:] > key[:-1])
+                | ((key[1:] == key[:-1]) & (rs[1:] >= rs[:-1]))).all()
+    if not bool(in_order):
+        order = lexsort([key, rs])
+        rc, rs, re, key = rc[order], rs[order], re[order], key[order]
+    run_max = re.clone()
+    s = 1
+    while s < d:
+        run_max[s:] = torch.where(key[s:] == key[:-s],
+                                  torch.maximum(run_max[s:], run_max[:-s]),
+                                  run_max[s:])
+        s <<= 1
     return rc, rs, run_max
 
 
@@ -185,29 +199,75 @@ def ds_mask_plain(client: torch.Tensor, clock: torch.Tensor,
                   d_start: torch.Tensor,
                   d_end: torch.Tensor) -> torch.Tensor:
     """Plain version: the kernel's algorithm as whole-tensor torch ops
-    — per item, a binary search (vectorized over the items, one round
-    per halving) for the last range whose (client, start) is <= the
-    item's (client, clock), then the same-client and running-max-end
-    test."""
+    — :func:`ds_sorted_ranges`, then per item a binary search
+    (vectorized over the items, one round per halving) for the last
+    range whose key (client, start) is <= the item's (client, clock),
+    then the same-client and running-max-end test."""
     rc, rs, run_max = ds_sorted_ranges(d_client, d_start, d_end)
     d = rc.shape[0]
-    ci = client.to(torch.int64)
-    ti = clock.to(torch.int64)
     if d == 0:
         return torch.zeros_like(valid, dtype=torch.bool)
+    key = _search_key(rc)
+    ci = _search_key(client)
+    ti = clock.to(torch.int64)
     lo = torch.zeros_like(ci)
     hi = torch.full_like(ci, d)
     for _ in range(d.bit_length()):
         live = lo < hi
         mid = torch.div(lo + hi, 2, rounding_mode="floor").clamp(max=d - 1)
-        cm = rc[mid]
+        cm = key[mid]
         le = (cm < ci) | ((cm == ci) & (rs[mid] <= ti))
         lo = torch.where(live & le, mid + 1, lo)
         hi = torch.where(live & ~le, mid, hi)
     p = lo - 1
     pc = p.clamp(min=0)
-    return (valid.to(torch.bool) & (p >= 0) & (rc[pc] == ci)
+    return (valid.to(torch.bool) & (p >= 0) & (key[pc] == ci)
             & (run_max[pc] > ti))
+
+
+def ds_mask_prepare(d_client: torch.Tensor, d_start: torch.Tensor,
+                    d_end: torch.Tensor) -> torch.Tensor:
+    """The card half of :func:`ds_sorted_ranges`: launches
+    ``ds_mask.cu``'s preparation of the D CUDA ranges (order check,
+    sort only when out of order, running max) and returns its int64
+    scratch, which :func:`ds_mask_search` reads. No host sync."""
+    lib = _build.library("ds_mask")
+    dc, ds_, de = (t.to(torch.int64).contiguous()
+                   for t in (d_client, d_start, d_end))
+    d = dc.shape[0]
+    scratch = torch.empty(lib.ds_mask_scratch_words(d), dtype=torch.int64,
+                          device=dc.device)
+    _build.check(lib.ds_mask_prepare(
+        dc.data_ptr(), ds_.data_ptr(), de.data_ptr(), d, scratch.data_ptr(),
+        _stream_handle(dc),
+    ), "ds_mask prepare")
+    return scratch
+
+
+def ds_mask_in_order(scratch: torch.Tensor, d: int) -> bool:
+    """Whether :func:`ds_mask_prepare` found its d ranges in search
+    order, so that nothing was sorted: the kernel's ``disorder`` flag,
+    the first int32 of the scratch (``Layout::head`` in ``ds_mask.cu``).
+    Reads the card, so it syncs; the wrapper never calls it."""
+    return d == 0 or int(scratch.view(torch.int32)[0]) == 0
+
+
+def ds_mask_search(client: torch.Tensor, clock: torch.Tensor,
+                   valid: torch.Tensor, d: int,
+                   scratch: torch.Tensor) -> torch.Tensor:
+    """Launches ``ds_mask.cu``'s search of N CUDA items against the d
+    ranges :func:`ds_mask_prepare` left in ``scratch``; [N] bool."""
+    lib = _build.library("ds_mask")
+    client = client.contiguous()
+    clock = clock.to(torch.int64).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    n = client.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=client.device)
+    _build.check(lib.ds_mask_search(
+        client.data_ptr(), clock.data_ptr(), valid.data_ptr(), n, d,
+        scratch.data_ptr(), out.data_ptr(), _stream_handle(client),
+    ), "ds_mask search")
+    return out
 
 
 def ds_mask(client: torch.Tensor, clock: torch.Tensor, valid: torch.Tensor,
@@ -220,7 +280,9 @@ def ds_mask(client: torch.Tensor, clock: torch.Tensor, valid: torch.Tensor,
 
     ``client`` [N] int32, ``clock`` [N] int64 (or int32), ``valid``
     [N] bool; the D ranges in any integer dtype, in any order (null
-    fillers with client -1 and start = end match nothing). Any D runs
+    fillers with client -1 and start = end match nothing). Ranges in
+    search order (see :func:`ds_sorted_ranges`) are not sorted; on the
+    card the kernel decides that itself, with no host sync. Any D runs
     on the card, 0 included."""
     _check_i32("client", client)
     n = client.shape[0]
@@ -237,21 +299,13 @@ def ds_mask(client: torch.Tensor, clock: torch.Tensor, valid: torch.Tensor,
         raise ValueError("ds_mask clocks and ranges must be integers")
     if not client.is_cuda:
         return ds_mask_plain(*tensors)
-    if n >= 1 << 31 or d_client.shape[0] >= 1 << 31:
+    d = d_client.shape[0]
+    if n >= 1 << 31 or d >= 1 << 31:
         raise ValueError("ds_mask takes fewer than 2**31 items and ranges")
-    lib = _build.library("ds_mask")
-    rc, rs, run_max = ds_sorted_ranges(d_client, d_start, d_end)
-    client = client.contiguous()
-    clock = clock.to(torch.int64).contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    out = torch.empty(n, dtype=torch.bool, device=client.device)
     if n == 0:
-        return out
-    _build.check(lib.ds_mask_launch(
-        client.data_ptr(), clock.data_ptr(), valid.data_ptr(), n,
-        rc.data_ptr(), rs.data_ptr(), run_max.data_ptr(), rc.shape[0],
-        out.data_ptr(), _stream_handle(client),
-    ), "ds_mask launch")
+        return torch.empty(0, dtype=torch.bool, device=client.device)
+    out = ds_mask_search(client, clock, valid, d,
+                         ds_mask_prepare(d_client, d_start, d_end))
     ds_mask.launches += 1
     return out
 
@@ -292,7 +346,9 @@ def sv_deficit_plain(svs: torch.Tensor) -> torch.Tensor:
 def sv_deficit(svs: torch.Tensor) -> torch.Tensor:
     """Pairwise deficit of [R, C] int64 state vectors:
     ``out[i, j] = sum_c max(svs[i, c] - svs[j, c], 0)``, [R, R] int64,
-    exact in int64 for any clock values (no centring, no envelope)."""
+    exact for any clock values whose spread within a column is below
+    2**63 (the kernel checks its int32 envelope per staged chunk on the
+    card and takes int64 for a chunk outside it)."""
     if svs.dim() != 2 or svs.dtype != torch.int64:
         raise ValueError(f"svs must be a 2-D int64 tensor, got {svs.dtype} "
                          f"of shape {tuple(svs.shape)}")
@@ -306,8 +362,10 @@ def sv_deficit(svs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r, r), dtype=torch.int64, device=svs.device)
     if r == 0:
         return out
+    sums = torch.empty(r, dtype=torch.int64, device=svs.device)
     _build.check(lib.sv_deficit_launch(
-        svs.data_ptr(), r, c, out.data_ptr(), _stream_handle(svs),
+        svs.data_ptr(), r, c, sums.data_ptr(), out.data_ptr(),
+        _stream_handle(svs),
     ), "sv_deficit launch")
     sv_deficit.launches += 1
     return out

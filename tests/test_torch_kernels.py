@@ -15,6 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from crdt_tpu.ops import deleteset as ref_ds
 from crdt_tpu.ops import pallas_kernels as pk
@@ -273,6 +275,87 @@ class TestDsMask:
         null = torch.full((512,), -1, dtype=torch.int64)
         assert not kernels.ds_mask(*t, null.int(), null, null).any()
 
+    @pytest.mark.parametrize("layout", [
+        "fleet",             # normalized set in search order, nulls last
+        "in_order_nested",   # search order, overlapping and nested
+        "shuffled",          # the same disjoint set, any order
+        "duplicates",        # every range twice, shuffled
+        "duplicates_in_order",
+        "all_null",
+    ])
+    def test_range_layouts_match_the_reference(self, layout):
+        # the layouts the card's preparation tells apart (taken as given
+        # or sorted on the device) give the reference kernel's answer
+        rng = np.random.default_rng(len(layout))
+        items = _items(rng, 1200, 1 << 33)
+        disjoint = "nested" not in layout
+        dc, ds_, de = _ranges(rng, 90, 1 << 33, disjoint=disjoint)
+        if layout.startswith("duplicates"):
+            dc, ds_, de = (np.r_[x, x] for x in (dc, ds_, de))
+            order = rng.permutation(len(dc))
+            dc, ds_, de = dc[order], ds_[order], de[order]
+        if layout == "all_null":
+            dc, ds_, de = (np.full(64, -1, x.dtype) for x in (dc, ds_, de))
+        if layout in ("fleet", "in_order_nested", "duplicates_in_order"):
+            order = np.lexsort((ds_, dc))
+            dc, ds_, de = dc[order], ds_[order], de[order]
+        nulls = 13 if layout in ("fleet", "in_order_nested") else 0
+        ranges = tuple(np.r_[x, np.full(nulls, -1)].astype(x.dtype)
+                       for x in (dc, ds_, de))
+        got, interp, search = _mask_all(items, ranges)
+        assert (got == interp).all()
+        if disjoint:
+            assert (got == search).all()
+        if layout != "all_null":
+            assert got.any() and not got.all()
+        else:
+            assert not got.any()
+
+    def test_ranges_in_search_order_are_not_sorted(self, monkeypatch):
+        # the in-order branch never reaches the sort; shuffled ranges do
+        def no_sort(keys):
+            raise AssertionError("lexsort called")
+
+        monkeypatch.setattr(kernels, "lexsort", no_sort)
+        rng = np.random.default_rng(11)
+        items = [torch.from_numpy(x) for x in _items(rng, 500, 0)]
+        dc, ds_, de = _ranges(rng, 40, 0, disjoint=False, nulls=5)
+        order = np.lexsort((ds_, dc.astype(np.int64) & 0xFFFFFFFFFFFF))
+        ranges = [torch.from_numpy(x[order]) for x in (dc, ds_, de)]
+        assert (dc[order][-5:] == -1).all()  # nulls last in search order
+        kernels.ds_mask_plain(*items, *ranges)
+        rc, rs, run_max = kernels.ds_sorted_ranges(*ranges)
+        assert torch.equal(rs, ranges[1].long())
+        shuffled = [r.flip(0) for r in ranges]
+        with pytest.raises(AssertionError, match="lexsort called"):
+            kernels.ds_mask_plain(*items, *shuffled)
+
+    @settings(max_examples=20, deadline=None, derandomize=True)
+    @given(data=st.data())
+    def test_matches_the_reference_kernel_hypothesis(self, data):
+        # fixed shapes (64 items, 16 ranges) keep one compiled
+        # reference; clients, clocks, lengths, nulls and the order vary
+        small = st.integers(0, 40)
+        rc = np.asarray(data.draw(st.lists(st.integers(-1, 3), min_size=16,
+                                           max_size=16)), np.int32)
+        rs = np.asarray(data.draw(st.lists(small, min_size=16,
+                                           max_size=16)), np.int64)
+        re = rs + np.asarray(data.draw(st.lists(st.integers(0, 12),
+                                                min_size=16, max_size=16)))
+        if data.draw(st.booleans()):  # search order: nulls last
+            order = np.lexsort((rs, rc.astype(np.uint32)))
+            rc, rs, re = rc[order], rs[order], re[order]
+        base = data.draw(st.sampled_from([0, (1 << 31) - 20, 1 << 40]))
+        items = (np.asarray(data.draw(st.lists(st.integers(-1, 3),
+                                               min_size=64, max_size=64)),
+                            np.int32),
+                 base + np.asarray(data.draw(st.lists(
+                     small, min_size=64, max_size=64)), np.int64),
+                 np.asarray(data.draw(st.lists(st.booleans(), min_size=64,
+                                               max_size=64))))
+        got, interp, _ = _mask_all(items, (rc, base + rs, base + re))
+        assert (got == interp).all()
+
     def test_sorted_ranges_running_max(self):
         dc = torch.tensor([2, 1, 1, 2, 1], dtype=torch.int32)
         ds_ = torch.tensor([0, 9, 0, 5, 3], dtype=torch.int64)
@@ -321,6 +404,43 @@ class TestSvDeficit:
         exact = np.asarray(ref_sv.exact_missing(jnp.asarray(svs)))
         assert (got == exact).all()
         assert (np.diag(got) == 0).all() and got[3, 0] == 13
+
+    @pytest.mark.parametrize("r,c,row,col,delta", [
+        (45, 70, 40, 35, 1 << 24),          # just past the int32 envelope
+        (45, 70, 3, 64, -(1 << 24) - 1),    # below it, in a ragged chunk
+        (45, 70, 31, 10, (1 << 24) - 1),    # at its edge: stays int32
+        (33, 40, 32, 0, 1 << 33),           # past the reference's 2**31
+    ])
+    def test_plain_where_a_card_chunk_straddles_the_envelope(
+            self, r, c, row, col, delta):
+        # the plain version (these tensors lie on the CPU) on inputs
+        # where one staged chunk of the card kernel (32 clients of a
+        # 32-row tile pair) leaves its int32 envelope of 2**24 around
+        # its tile pair's first row; R is no multiple of the tile. The
+        # card kernel's int64 branch itself is held against the plain
+        # version by chip_smoke.py's sv_edge_cases.
+        rng = np.random.default_rng(r + c + row)
+        svs = _svs(rng, r, c, 1 << 40, 300)
+        svs[row, col] = svs[(row // 32) * 32, col] + delta
+        got = kernels.sv_deficit(torch.from_numpy(svs)).numpy()
+        interp = np.asarray(pk.sv_deficit_static(jnp.asarray(svs),
+                                                 interpret=True))
+        exact = np.asarray(ref_sv.exact_missing(jnp.asarray(svs)))
+        assert (got == interp).all() and (got == exact).all()
+
+    @settings(max_examples=20, deadline=None, derandomize=True)
+    @given(st.lists(st.integers(0, 60), min_size=45, max_size=45),
+           st.sampled_from([0, 1 << 20, 1 << 24, 1 << 33]),
+           st.integers(0, 44), st.integers(-(1 << 40), 1 << 40))
+    def test_plain_matches_exact_missing_hypothesis(self, vals, spread, at,
+                                                    base):
+        # the plain version on [9, 5] clocks at any int64 base, one cell
+        # lagging or leading by up to 2**33
+        svs = base + np.asarray(vals, np.int64).reshape(9, 5)
+        svs.flat[at] += spread
+        got = kernels.sv_deficit(torch.from_numpy(svs)).numpy()
+        exact = np.asarray(ref_sv.exact_missing(jnp.asarray(svs)))
+        assert (got == exact).all()
 
     def test_plain_chunks_rows(self, monkeypatch):
         monkeypatch.setattr(kernels, "_SV_PLAIN_TERMS", 7)
