@@ -22,9 +22,10 @@ JAX or of the reference package. Phases, each fatal on failure:
      delta_round`` on 1000 replicas, a budget below and one above the
      deficit, card against CPU field by field;
   6. time each kernel on the inputs each card run gave it (CUDA events
-     around a CUDA-graph replay of the calls), against its bound, its
-     plain version and (where one exists) one library call; then count
-     how many of a known number of launches a profiler trace holds.
+     around a CUDA-graph replay of the calls; a kernel wrapper that
+     cannot be captured fails the run), against its bound, its plain
+     version and (where one exists) one library call; then count how
+     many of a known number of launches a profiler trace holds.
 
 In phases 4 and 5 every kernel of the path must have launched in every
 card run (counts are zeroed just before each run and read just after)
@@ -178,16 +179,21 @@ def profiler_check(torch, fn, per_call: int, iters: int = 50,
     return out
 
 
-def timed(torch, fn, iters: int) -> tuple:
+def timed(torch, fn, iters: int, graph_required: bool = False) -> tuple:
     """(device ms, wall ms, source of the device ms) of one call. The
     wall time (CUDA events around back-to-back calls) includes the host's
     enqueue when that is slower than the card; where ``fn`` cannot be
-    captured in a graph, the device time is the wall time, and says so."""
+    captured in a graph, the device time is the wall time, and says so,
+    unless ``graph_required`` (a kernel wrapper: its launches must stay
+    capturable), where that raises."""
     wall = cuda_ms(torch, fn, iters)
     try:
         return graph_ms(torch, fn, iters), wall, "cuda graph"
     except RuntimeError as e:
         torch.cuda.synchronize()
+        if graph_required:
+            raise AssertionError(
+                f"a kernel wrapper broke CUDA-graph capture: {e}") from e
         log(f"no graph time ({str(e).splitlines()[0]}); using CUDA events")
         return wall, wall, "events"
 
@@ -319,6 +325,9 @@ def main() -> int:
         hold_kernel("stream_scatter", perm, n // 2)       # short output
     hold_kernel("stream_scatter", torch.zeros(0, **i32), 4)
     hold_kernel("stream_scatter", torch.arange(4, **i32), 0)
+    scan_edge_cases(torch, dev, ri, hold_kernel,
+                    _build.library("seg_argmax_scan").seg_argmax_scan_tile())
+    scatter_edge_cases(torch, dev, g, ri, hold_kernel)
     ds_edge_cases(torch, dev, ri, hold_kernel)
     sv_edge_cases(torch, dev, g, hold_kernel)
     log(f"kernel edge cases: kernel == plain on the card, exact "
@@ -456,10 +465,10 @@ def main() -> int:
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
-        torch, lambda: kernels.seg_argmax_scan(client, flags), 3)
-    log("profiler check: 50 calls of seg_argmax_scan (3 launches each, "
-        "150 activities) traced (activities, device ms a call) "
-        f"{json.dumps(checks)}")
+        torch, lambda: kernels.seg_argmax_scan(client, flags), 2)
+    log("profiler check: 50 calls of seg_argmax_scan (2 launches each: "
+        "clear_words and scan_tiles, 100 activities) traced (activities, "
+        f"device ms a call) {json.dumps(checks)}")
     log(f"card: {smi}")
     # the kernels line carries the scale run's shapes (the last trace)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -467,6 +476,64 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def scan_edge_cases(torch, dev, ri, hold_kernel, tile: int) -> None:
+    """``seg_argmax_scan`` on the card against its plain version around
+    its tile of ``tile`` elements: one tile less one, one, one more, and
+    several tiles and one (33 and 65 tiles: a look-back past one window
+    of 32); one run across every tile with its only run starts in the
+    last tile; a run start on the first element of every tile; the
+    maximum in tile 0 and ties across tile borders (the earliest
+    position wins); all padding; and views at an odd offset."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    for n in (tile - 1, tile, tile + 1, 2 * tile + 1, 33 * tile + 1,
+              65 * tile + 1):
+        client = ri(0, 1 << 14, n)
+        last = torch.zeros(n, **i32)                      # starts: last tile
+        t0 = (n - 1) // tile * tile                       # only
+        last[t0:] = (ri(0, 9, n - t0) == 0).int()
+        last[-1] = 1
+        hold_kernel("seg_argmax_scan", client, last)
+        hold_kernel("seg_argmax_scan", ri(0, 3, n), last)  # ties, one run
+        heads = torch.zeros(n, **i32)
+        heads[::tile] = 1                                 # a start per tile
+        hold_kernel("seg_argmax_scan", client, heads)
+        heads[1::tile] = 1                                # ... and after it
+        hold_kernel("seg_argmax_scan", ri(0, 2, n), heads)
+        one_run = torch.zeros(n, **i32)
+        top = ri(0, 3, n)
+        top[1] = 9                                        # max in tile 0
+        hold_kernel("seg_argmax_scan", top, one_run)
+        ties = ri(0, 3, n)
+        ties[tile - 1::tile] = 7                          # ties across borders
+        ties[tile::tile] = 7
+        hold_kernel("seg_argmax_scan", ties, one_run)
+        hold_kernel("seg_argmax_scan", ties, heads)
+        hold_kernel("seg_argmax_scan", torch.full((n,), -1, **i32),
+                    torch.ones(n, **i32))                 # all padding
+        wide = ri(-(1 << 31), (1 << 31) - 1, n + 1)       # odd-offset views
+        wide_flags = (ri(0, 40, n + 1) == 0).int()
+        hold_kernel("seg_argmax_scan", wide[1:], wide_flags[1:])
+        hold_kernel("seg_argmax_scan", wide[1:], one_run)
+        hold_kernel("seg_argmax_scan", client, wide_flags[1:])
+
+
+def scatter_edge_cases(torch, dev, g, ri, hold_kernel) -> None:
+    """``stream_scatter`` on the card against its plain version: n_in
+    not a multiple of 4, n_out above and below n_in, views of ``pos``
+    at an odd offset, and every target dropped."""
+    for n in (4097, 4098, 4099, 655_361, 655_363):
+        perm = torch.randperm(n + 1, generator=g).to(torch.int32).to(dev)
+        for n_out in (n, n - 5, n + 1, 2 * n + 3, n // 3):
+            hold_kernel("stream_scatter", perm[:n], n_out)
+            hold_kernel("stream_scatter", perm[1:], n_out)  # odd offset
+            hold_kernel("stream_scatter", perm[3:], n_out)
+        hold_kernel("stream_scatter", torch.full_like(perm[1:], -1), n)
+        hold_kernel("stream_scatter", perm[1:] + (n + 1), n + 1)
+        hold_kernel("stream_scatter", ri(-(1 << 31), 0, n), n)
+    hold_kernel("stream_scatter", torch.arange(7, dtype=torch.int32,
+                                               device=dev)[1:], 3)
 
 
 def ds_edge_cases(torch, dev, ri, hold_kernel) -> None:
@@ -679,7 +746,8 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
     def row(name, shape, args, library, nbytes_, ops=0):
         kernel = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
-        ms, wall, src = timed(torch, lambda: kernel(*args), 50)
+        ms, wall, src = timed(torch, lambda: kernel(*args), 50,
+                              graph_required=True)
         plain_ms, plain_wall, _ = timed(torch, lambda: plain(*args), 5)
         lib = timed(torch, library, 20) if library else (None, None, None)
         byte_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
@@ -748,7 +816,7 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
         # so that nothing was sorted
         rows[-1]["ranges_in_order"] = kernels.ds_mask_in_order(scratch, d)
         rows[-1]["search_ms"] = timed(torch, lambda: kernels.ds_mask_search(
-            client, clock, valid, d, scratch), 50)[0]
+            client, clock, valid, d, scratch), 50, graph_required=True)[0]
     if "sv_deficit" in seen:
         (svs,) = seen["sv_deficit"][0]
         r, c = svs.shape

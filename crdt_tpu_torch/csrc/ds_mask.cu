@@ -59,6 +59,8 @@
 
 #include <climits>
 
+#include "lookback.cuh"
+
 namespace {
 
 typedef long long i64;
@@ -83,10 +85,11 @@ constexpr int kThreads = 256;
 constexpr int kItems = 4;  // items a search thread takes
 constexpr int kBlockItems = kThreads * kItems;
 
-// tile status of the look-back
-constexpr int kEmpty = 0;
-constexpr int kAggregate = 1;
-constexpr int kPrefix = 2;
+using lookback::kAggregate;
+using lookback::kEmpty;
+using lookback::kPrefix;
+using lookback::publish;
+using lookback::status_of;
 
 __device__ __forceinline__ bool key_lt(u64 c1, i64 s1, u64 c2, i64 s2) {
   return c1 < c2 || (c1 == c2 && s1 < s2);
@@ -134,26 +137,6 @@ __device__ __forceinline__ Pair warp_inclusive(Pair v) {
 
 __device__ __forceinline__ Pair load_cg(const Pair* p) {
   return {__ldcg(&p->c), __ldcg(&p->e)};
-}
-
-// A tile's status word is written with release and read with acquire
-// semantics at device scope, which orders the Pair beside it without a
-// full fence on either side.
-__device__ __forceinline__ void publish(Pair* to, int* status, Pair v,
-                                        int flag) {
-  to->c = v.c;
-  to->e = v.e;
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(status), "r"(flag)
-               : "memory");
-}
-
-__device__ __forceinline__ int status_of(const int* status) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-               : "=r"(v)
-               : "l"(status)
-               : "memory");
-  return v;
 }
 
 // The search's arrays from ranges in search order: keys[i] = (client,
@@ -282,12 +265,6 @@ run_max_scan(const i64* __restrict__ c, const i64* __restrict__ s,
     const int j = k * kScanThreads + threadIdx.x;
     if (base + j < d) run_max[base + j] = e_sh[slot(j)];
   }
-}
-
-// Zeroes the look-back's counters and status before a scan of several
-// tiles (a kernel: a memset node costs more between kernels).
-__global__ void clear_words(i64* __restrict__ p, int words) {
-  for (int i = threadIdx.x; i < words; i += blockDim.x) p[i] = 0;
 }
 
 // Place of element `j` (of a run starting at r0) in the merge of its run
@@ -484,7 +461,8 @@ int ds_mask_prepare(const i64* d_client, const i64* d_start, const i64* d_end,
   if (d <= 0) return static_cast<int>(cudaGetLastError());
   const Layout l = layout(d);
   if (l.tiles > 1)  // the look-back's counters and status, the flag
-    clear_words<<<1, 256, 0, st>>>(scratch, static_cast<int>(l.zero_words));
+    lookback::clear_words<<<1, 256, 0, st>>>(
+        scratch, static_cast<int>(l.zero_words));
   int* head = reinterpret_cast<int*>(scratch + l.head);
   int* disorder = head;
   int* status = reinterpret_cast<int*>(scratch + l.status);

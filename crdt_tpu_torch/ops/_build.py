@@ -4,10 +4,11 @@ Each ``csrc/*.cu`` source has a plain C interface. At first use it is
 compiled by ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 its own shared library under ``crdt_tpu_torch/build/kernels/`` (listed
 in ``.gitignore``) and loaded with ``ctypes``. The library's file name
-carries a hash of its source, so an edited kernel never loads a stale
-build. :func:`build_all` starts one ``nvcc`` per source, all at once,
-and waits for them together. A failed build or load raises; nothing
-falls back to the plain version.
+carries a hash of its source and of every header under ``csrc/``, so
+an edited kernel or header never loads a stale build. :func:`build_all`
+starts one ``nvcc`` per source, all at once, and waits for them
+together. A failed build or load raises; nothing falls back to the
+plain version.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ _L = ctypes.c_longlong
 KERNELS: Dict[str, tuple] = {
     "seg_argmax_scan": ("seg_argmax_scan.cu", {
         "seg_argmax_scan_tile": (_I, ()),
-        "seg_argmax_scan_scratch_ints": (_I, ()),
+        "seg_argmax_scan_scratch_words": (_L, (_I,)),
         "seg_argmax_scan_launch": (_I, (_P, _P, _P, _P, _I, _P)),
     }),
     "stream_scatter": ("stream_scatter.cu", {
@@ -81,9 +82,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for src in [CSRC / KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> Dict[str, Built]:

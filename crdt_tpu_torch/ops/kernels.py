@@ -19,11 +19,11 @@ plain version. Each wrapper counts its launches in ``.launches``,
 incremented where the kernel is launched and nowhere else.
 
 Unlike the TPU kernels, none has a width guard or a crossover: the
-CUDA scan tiles the block and carries across tiles, ``ds_mask`` binary
-searches the ranges for any D (sorting them on the device only when
-they arrive out of order), and ``sv_deficit`` runs int32 tiles with an
-int64 path for any staged chunk outside their envelope, so every size
-runs on the card.
+CUDA scan tiles the block and carries across tiles by decoupled
+look-back, ``ds_mask`` binary searches the ranges for any D (sorting
+them on the device only when they arrive out of order), and
+``sv_deficit`` runs int32 tiles with an int64 path for any staged
+chunk outside their envelope, so every size runs on the card.
 """
 
 from __future__ import annotations
@@ -47,32 +47,46 @@ def _stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data 16-byte aligned, as the kernels'
+    16-byte loads take it: ``t`` itself when it is, else a copy (a view
+    at an odd offset keeps that offset under ``contiguous()``)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_i32_count(name: str, n: int) -> None:
+    if n >= 1 << 31:
+        raise ValueError(f"{name} takes fewer than 2**31 elements")
+
+
 # ---------------------------------------------------------------------------
 # segmented argmax scan
 # ---------------------------------------------------------------------------
 
 
+_LOW32 = (1 << 32) - 1
+
+
 def seg_argmax_scan_plain(client: torch.Tensor,
                           flags: torch.Tensor) -> torch.Tensor:
-    """Plain version: the oracle's segmented-scan operator on
-    (client, arg, flag) in log-step shifted selects (Hillis–Steele).
-    Round s combines every position with the window ending s before
-    it unless a run start lies in between; equal clients keep the
-    EARLIER position."""
+    """Plain version: the kernel's combine on one int64 key a position,
+    ``client * 2**32 + (2**32 - 1 - position)``, so that the larger key
+    is the larger client and, among equal clients, the EARLIER
+    position. In log-step shifted selects (Hillis–Steele): round s
+    gives every position the max of its key and the window's ending s
+    before it, unless a run start lies in its own window."""
     n = client.shape[0]
-    c = client.to(torch.int32)
-    a = torch.arange(n, dtype=torch.int32, device=client.device)
+    pos = torch.arange(n, dtype=torch.int64, device=client.device)
+    key = (client.to(torch.int64) << 32) | (_LOW32 - pos)
     f = flags != 0
     s = 1
     while s < n:
-        pc, pa, pf = c[:-s], a[:-s], f[:-s]
-        cc, ca, cf = c[s:], a[s:], f[s:]
-        take = ~cf & ((pc > cc) | ((pc == cc) & (pa < ca)))
-        c = torch.cat([c[:s], torch.where(take, pc, cc)])
-        a = torch.cat([a[:s], torch.where(take, pa, ca)])
-        f = torch.cat([f[:s], cf | pf])
+        key = torch.cat([key[:s], torch.where(
+            f[s:], key[s:], torch.maximum(key[:-s], key[s:]))])
+        f = torch.cat([f[:s], f[s:] | f[:-s]])
         s <<= 1
-    return a
+    return (_LOW32 - (key & _LOW32)).to(torch.int32)
 
 
 def seg_argmax_scan(client: torch.Tensor,
@@ -89,16 +103,14 @@ def seg_argmax_scan(client: torch.Tensor,
         raise ValueError("client and flags must match in shape and device")
     if not client.is_cuda:
         return seg_argmax_scan_plain(client, flags)
-    lib = _build.library("seg_argmax_scan")
-    client = client.contiguous()
-    flags = flags.contiguous()
     n = client.shape[0]
-    out = torch.empty_like(client)
-    tiles = -(-n // lib.seg_argmax_scan_tile())
-    scratch = torch.empty(
-        max(tiles, 1) * lib.seg_argmax_scan_scratch_ints(),
-        dtype=torch.int32, device=client.device,
-    )
+    _check_i32_count("seg_argmax_scan", n)
+    lib = _build.library("seg_argmax_scan")
+    client = aligned16(client)
+    flags = aligned16(flags)
+    out = torch.empty(n, dtype=torch.int32, device=client.device)
+    scratch = torch.empty(lib.seg_argmax_scan_scratch_words(n),
+                          dtype=torch.int64, device=client.device)
     _build.check(lib.seg_argmax_scan_launch(
         client.data_ptr(), flags.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), n, _stream_handle(client),
@@ -137,6 +149,7 @@ def stream_scatter(pos: torch.Tensor, n_out: int) -> torch.Tensor:
         raise ValueError(f"n_out must be >= 0, got {n_out}")
     if not pos.is_cuda:
         return stream_scatter_plain(pos, n_out)
+    _check_i32_count("stream_scatter", max(pos.shape[0], n_out))
     lib = _build.library("stream_scatter")
     pos = pos.contiguous()
     out = torch.empty(n_out, dtype=torch.int32, device=pos.device)

@@ -21,7 +21,7 @@ from hypothesis import strategies as st
 from crdt_tpu.ops import deleteset as ref_ds
 from crdt_tpu.ops import pallas_kernels as pk
 from crdt_tpu.ops import statevec as ref_sv
-from crdt_tpu_torch.ops import kernels
+from crdt_tpu_torch.ops import _build, kernels
 
 
 def _run_layout(rng, n, runs):
@@ -115,6 +115,31 @@ class TestSegArgmaxScan:
                                       torch.zeros(0, dtype=torch.int32))
         assert out.shape == (0,)
 
+    @settings(max_examples=20, deadline=None, derandomize=True)
+    @given(data=st.data())
+    def test_plain_matches_the_oracle_across_card_tiles_hypothesis(self,
+                                                                   data):
+        # one shape (4,500 rows: past four of the card's 1,024-row tiles)
+        # keeps one compiled oracle; runs as long as the whole block or a
+        # few rows, clients over all of int32 or a few values (ties),
+        # and a padding tail of own-run -1 rows vary
+        n = 4500
+        rng = np.random.default_rng(data.draw(st.integers(0, 2**32 - 1)))
+        lo, hi = data.draw(st.sampled_from([(-2**31, 2**31), (0, 3)]))
+        client = rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32)
+        rate = data.draw(st.sampled_from([0.0, 1e-3, 0.05, 0.5]))
+        flags = (rng.random(n) < rate).astype(np.int32)
+        flags[0] = data.draw(st.integers(0, 1))
+        pad = data.draw(st.integers(0, 2100))
+        if pad:
+            client[n - pad:] = -1
+            flags[n - pad:] = 1
+        got = kernels.seg_argmax_scan(torch.from_numpy(client),
+                                      torch.from_numpy(flags)).numpy()
+        oracle = np.asarray(pk.seg_argmax_scan_jnp(jnp.asarray(client),
+                                                   jnp.asarray(flags)))
+        assert (got == oracle).all()
+
 
 class TestStreamScatter:
     @pytest.mark.parametrize("n", [1, 5, 128, 700, 8 * 128 + 9])
@@ -165,6 +190,57 @@ class TestWrappers:
             "seg_argmax_scan": 0, "stream_scatter": 0, "ds_mask": 0,
             "sv_deficit": 0,
         }
+
+    @pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+    def test_aligned16_gives_an_aligned_equal_tensor(self, offset):
+        # the kernels' 16-byte loads: a view at an odd offset comes back
+        # as an aligned copy, an aligned tensor as itself
+        base = torch.arange(40, dtype=torch.int32)
+        assert base.data_ptr() % 16 == 0
+        view = base[offset:offset + 33]
+        got = kernels.aligned16(view)
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got, view)
+        assert (got.data_ptr() == view.data_ptr()) == (offset % 4 == 0)
+        strided = kernels.aligned16(base[offset::3])
+        assert strided.is_contiguous() and strided.data_ptr() % 16 == 0
+        assert torch.equal(strided, base[offset::3])
+
+    def test_odd_offset_views_take_the_same_answer(self):
+        # what the card wrapper hands its kernel for a view, the plain
+        # version answers alike
+        rng = np.random.default_rng(12)
+        client, flags = _run_layout(rng, 301, 9)
+        c, f = torch.from_numpy(client), torch.from_numpy(flags)
+        want = kernels.seg_argmax_scan(c[1:].clone(), f[1:].clone())
+        assert torch.equal(kernels.seg_argmax_scan(c[1:], f[1:]), want)
+        assert torch.equal(
+            kernels.seg_argmax_scan(kernels.aligned16(c[1:]),
+                                    kernels.aligned16(f[1:])), want)
+        pos = torch.from_numpy(rng.permutation(300).astype(np.int32))
+        assert torch.equal(kernels.stream_scatter(pos[1:], 300),
+                           kernels.stream_scatter(pos[1:].clone(), 300))
+
+    def test_build_name_covers_sources_and_headers(self, tmp_path,
+                                                   monkeypatch):
+        # an edited header (or source) names another library, so a
+        # stale build is never loaded; no nvcc needed
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        for name, (src, _) in _build.KERNELS.items():
+            (tmp_path / src).write_text(f"// {name}\n")
+        (tmp_path / "lookback.cuh").write_text("// v1\n")
+        before = {name: _build._target(name) for name in _build.KERNELS}
+        (tmp_path / "lookback.cuh").write_text("// v2\n")
+        after = {name: _build._target(name) for name in _build.KERNELS}
+        assert all(before[k] != after[k] for k in before)
+        assert all(p.name.startswith(f"lib{k}-") for k, p in after.items())
+        (tmp_path / "extra.cuh").write_text("// new header\n")
+        assert _build._target("ds_mask") != after["ds_mask"]
+        (tmp_path / "extra.cuh").unlink()
+        assert _build._target("ds_mask") == after["ds_mask"]
+        (tmp_path / "ds_mask.cu").write_text("// edited\n")
+        assert _build._target("ds_mask") != after["ds_mask"]
+        assert _build._target("sv_deficit") == after["sv_deficit"]
 
     @pytest.mark.parametrize("bad", [
         torch.zeros(4, dtype=torch.int64),
