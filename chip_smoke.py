@@ -21,13 +21,26 @@ JAX or of the reference package. Phases, each fatal on failure:
      the card's device-route result; then one ``ReplicaFleet.
      delta_round`` on 1000 replicas, a budget below and one above the
      deficit, card against CPU field by field;
-  6. time each kernel on the inputs each card run gave it (CUDA events
+  6. replay the same traces on the streaming route (``stream_replay``:
+     chunked decode, one converge per shard of whole root subtrees on
+     two side streams, per-shard materialize) on the card, equal to the
+     card's device route and, for the two 1000 x 100 traces, to the
+     CPU's stream route; each of ``seg_argmax_scan`` and
+     ``stream_scatter`` must launch once per shard (4 at 1000 x 1600).
+     It prints the route's per-stage busy seconds, its
+     ``overlap_efficiency`` and ``wall_vs_phases``, and the host syncs
+     ``torch.cuda.set_sync_debug_mode("warn")`` reports in one more
+     card run. Then the collaborative-text trace (200 writers x 100
+     ops, 20% mid-inserts with right origins) on the device, stream
+     and fleet routes: all three equal on the card and equal to the
+     CPU;
+  7. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
      version and (where one exists) one library call; then count how
      many of a known number of launches a profiler trace holds.
 
-In phases 4 and 5 every kernel of the path must have launched in every
+In phases 4 to 6 every kernel of the path must have launched in every
 card run (counts are zeroed just before each run and read just after)
 and none in a CPU run, each kernel must equal its plain version,
 exactly, on the inputs the run gave it, and one more card replay of
@@ -35,7 +48,7 @@ each trace under the profiler gives the share of it in which the card
 is busy (a lower bound where the trace loses activities).
 
 The line before the last is the kernels JSON object, at the scale
-run's shapes; the last line is
+run's device-route shapes; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -69,6 +82,7 @@ REPLACES = {
 # the kernels each replay route must launch on the card
 ROUTE_KERNELS = {
     "device": ("seg_argmax_scan", "stream_scatter"),
+    "stream": ("seg_argmax_scan", "stream_scatter"),
     "fleet": ("ds_mask", "sv_deficit"),
 }
 
@@ -238,16 +252,21 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    from crdt_tpu_torch.models import fleet
+    from crdt_tpu_torch.models import fleet, streaming
     from crdt_tpu_torch.models import replay as rp
     from crdt_tpu_torch.models import traces
-    from crdt_tpu_torch.obs import Tracer, set_tracer
+    from crdt_tpu_torch.obs import (TickTimeline, Tracer, set_timeline,
+                                    set_tracer)
     from crdt_tpu_torch.ops import _build, deleteset, kernels, statevec
     from crdt_tpu_torch.ops import packed as packed_mod
     from crdt_tpu_torch.parallel.delta import synth_resident_columns
 
     capture_sites = {
         "device": ((packed_mod, "seg_argmax_scan"),
+                   (packed_mod, "stream_scatter")),
+        # the stream route's launches come from its stager thread,
+        # through the same module globals
+        "stream": ((packed_mod, "seg_argmax_scan"),
                    (packed_mod, "stream_scatter")),
         "fleet": ((deleteset, "ds_mask"), (statevec, "sv_deficit")),
     }
@@ -346,23 +365,39 @@ def main() -> int:
     card_inputs: dict = {label: {} for label, _ in plans}
     device_results: dict = {}
 
-    def replay_run(route: str, label: str, blobs, device: str):
+    def run_route(route: str, blobs, device: str, stream_phases=None):
+        if route == "stream":
+            # the entry point a user calls, with its phase accounting
+            return streaming.stream_replay(blobs, device=device,
+                                           phases=stream_phases)
+        return rp.replay_trace(blobs, route=route, device=device)
+
+    def replay_run(route: str, label: str, blobs, device: str,
+                   key: str = None):
         """One replay on ``route``: counts zeroed just before, read
         just after; returns the result and records the run's kernel
-        inputs, phase spans and transfer counters."""
+        inputs (under ``key``, default ``label``), phase spans and
+        transfer counters. A stream run logs its own per-stage busy
+        seconds and its shard count (the timeline's dispatches), and on
+        the card each of its kernels must launch once per shard."""
         tracer = set_tracer(Tracer(enabled=True))
+        timeline = set_timeline(TickTimeline(enabled=True))
         seen: dict = {}
+        stream_phases: dict = {}
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
         with capture_kernel_inputs(seen, *capture_sites[route]):
-            res = rp.replay_trace(blobs, route=route, device=device)
+            res = run_route(route, blobs, device, stream_phases)
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         set_tracer(Tracer(enabled=False))
+        set_timeline(TickTimeline(enabled=False))
         rep = tracer.report()
-        phases = {p: round(rep["spans"][p]["total_s"], 6)
-                  for p in PHASES[route] if p in rep["spans"]}
+        # the stream route reports its own per-stage busy seconds
+        phases = stream_phases if route == "stream" else {
+            p: round(rep["spans"][p]["total_s"], 6)
+            for p in PHASES[route] if p in rep["spans"]}
         xfer = {k: v for k, v in rep["counters"].items()
                 if k.startswith("xfer.d2h_bytes") or k.startswith(
                     "xfer.h2d_bytes") or k.startswith("xfer.h2d_puts")
@@ -370,6 +405,18 @@ def main() -> int:
         log(f"{label} [{route}, {device}]: {res.n_ops} ops in {wall:.3f} s; "
             f"phases (s) {json.dumps(phases)}; launches {counts}")
         log(f"{label} [{route}, {device}]: xfer {json.dumps(xfer)}")
+        if route == "stream":
+            (tick,) = timeline.records()
+            shards = len(tick["dispatches"])
+            log(f"{label} [stream, {device}]: {shards} shards; "
+                f"overlap_efficiency {phases['overlap_efficiency']}, "
+                f"wall_vs_phases {phases['wall_vs_phases']}")
+            if device == "cuda":
+                for name in ROUTE_KERNELS[route]:
+                    if counts[name] != shards:
+                        raise AssertionError(
+                            f"{label} [stream]: {name} launched "
+                            f"{counts[name]} times for {shards} shards")
         if device == "cuda":
             for name in ROUTE_KERNELS[route]:
                 if counts[name] <= 0:
@@ -377,7 +424,7 @@ def main() -> int:
                         f"{label} [{route}]: {name} never launched on "
                         "the card")
                 launches[name] += counts[name]
-            card_inputs[label].update(seen)
+            card_inputs.setdefault(key or label, {}).update(seen)
         elif any(counts.values()):
             raise AssertionError(
                 f"{label} [{route}]: CPU run launched {counts}")
@@ -397,17 +444,16 @@ def main() -> int:
         # card is busy (the profiler slows the host a little)
         t0 = time.perf_counter()
         busy_us, _ = traced_device(
-            torch, lambda: rp.replay_trace(blobs, route=route,
-                                           device="cuda"))
+            torch, lambda: run_route(route, blobs, "cuda"))
         wall = time.perf_counter() - t0
         log(f"{label} [{route}]: device busy {busy_us / 1e3:.3f} ms of a "
             f"{wall * 1e3:.1f} ms profiled replay "
             f"(busy share {busy_us / 1e6 / wall:.5f})")
 
-    def hold_run_inputs(label: str, route: str) -> None:
+    def hold_run_inputs(label: str, route: str, key: str = None) -> None:
         # the kernels on exactly the inputs this run gave them
         for name in ROUTE_KERNELS[route]:
-            for args in card_inputs[label][name]:
+            for args in card_inputs[key or label][name]:
                 hold_kernel(name, *args)
         log(f"{label} [{route}]: kernel == plain on the run's own inputs")
 
@@ -455,13 +501,62 @@ def main() -> int:
         hold_run_inputs(label, "fleet")
     delta_round_check(torch, fleet, kernels, synth_resident_columns)
 
-    # ---- 6. timing at the main path's shapes ---------------------------
+    # ---- 6. the stream route and the text trace --------------------------
+    for i, (label, _) in enumerate(plans):
+        blobs = blobs_of[label]
+        if i == 0:
+            streaming.stream_replay(blobs, device="cuda")  # warm-up
+            torch.cuda.synchronize()
+        key = f"{label} stream"
+        card = replay_run("stream", label, blobs, "cuda", key=key)
+        same(label, card, device_results[label],
+             "stream route vs device route, card")
+        if not label.startswith("scale"):
+            cpu = replay_run("stream", label, blobs, "cpu")
+            same(label, card, cpu, "stream route, card vs CPU")
+        log(f"{label} [stream]: card == device route"
+            f"{'' if label.startswith('scale') else ' == CPU stream route'}")
+        busy_share(label, "stream", blobs)
+        hold_run_inputs(label, "stream", key=key)
+    sync_report(torch, streaming, blobs_of["scale_1000x1600"])
+
+    label = "text_200x100"
+    t0 = time.perf_counter()
+    blobs = traces.build_text_trace(200, 100)
+    log(f"{label}: {len(blobs)} blobs, {sum(map(len, blobs))} bytes, "
+        f"built in {time.perf_counter() - t0:.3f} s")
+    text_cpu = replay_run("device", label, blobs, "cpu")
+    for route in ("device", "stream", "fleet"):
+        key = f"{label} {route}"
+        card = replay_run(route, label, blobs, "cuda", key=key)
+        same(label, card, text_cpu, f"{route} route on the card vs CPU "
+             "device route")
+        if route == "fleet":
+            same(label, replay_run("fleet", label, blobs, "cpu"),
+                 text_cpu, "fleet route on the CPU vs CPU device route")
+        busy_share(label, route, blobs)
+        hold_run_inputs(label, route, key=key)
+    log(f"{label}: device, stream and fleet routes on the card == CPU")
+
+    # ---- 7. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
+        if label.startswith("text"):
+            continue  # held above; the text trace's shapes are small
         rows = kernel_rows(torch, kernels, seen, launches, max_err)
         log(f"kernel times ({label}): " + json.dumps(rows))
-        log(f"ds_mask ({label}): device activities of 10 wrapper calls "
-            + json.dumps(ds_mask_activities(torch, kernels,
-                                            seen["ds_mask"][0])))
+        if "ds_mask" in seen:
+            log(f"ds_mask ({label}): device activities of 10 wrapper calls "
+                + json.dumps(ds_mask_activities(torch, kernels,
+                                                seen["ds_mask"][0])))
+        if label == "scale_1000x1600":
+            # the kernels line carries the scale run's device-route and
+            # fleet-route shapes
+            scale_rows = rows
+        if label.endswith("stream"):
+            shapes = {name: [[tuple(a.shape) if hasattr(a, "shape") else a
+                              for a in args] for args in calls]
+                      for name, calls in seen.items()}
+            log(f"stream shard inputs ({label}): {json.dumps(shapes)}")
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -470,12 +565,43 @@ def main() -> int:
         "clear_words and scan_tiles, 100 activities) traced (activities, "
         f"device ms a call) {json.dumps(checks)}")
     log(f"card: {smi}")
-    # the kernels line carries the scale run's shapes (the last trace)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": scale_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def sync_report(torch, streaming, blobs) -> None:
+    """One more card stream replay under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every host sync it
+    reports, counted by the thread and the line that made it (the
+    stager thread's converge should make none)."""
+    import threading
+    import warnings
+
+    found: dict = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        where = (f"{threading.current_thread().name}: "
+                 f"{Path(filename).parent.name}/{Path(filename).name}:"
+                 f"{lineno}: {str(message).splitlines()[0][:60]}")
+        found[where] = found.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            streaming.stream_replay(blobs, device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    stager = sum(n for k, n in found.items()
+                 if k.startswith("stream-stager"))
+    log("host syncs of one 1000x1600 stream replay (sync debug mode), "
+        f"by thread and line: {json.dumps(found)}; {stager} from the "
+        "stager thread")
 
 
 def scan_edge_cases(torch, dev, ri, hold_kernel, tile: int) -> None:

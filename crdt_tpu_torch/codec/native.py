@@ -9,7 +9,11 @@ replay needs:
 - :func:`decode_updates_columns` — one C pass over a batch of v1 blobs
   producing interned numpy columns + a contents list.
 - :func:`encode_from_columns` — byte-identical to
-  :func:`crdt_tpu_torch.codec.v1.encode_update` on the same logical rows.
+  :func:`crdt_tpu_torch.codec.v1.encode_update` on the same logical rows;
+- :func:`merge_decoded` — per-chunk decodes merged into the one-pass
+  union (the streaming executor's decode lane), with the packed-id row
+  index :func:`id_index` / :func:`id_lookup` it shares with the
+  executor's partition climb.
 
 When the toolchain is missing, :func:`available` is False and callers
 take the pure-Python codec instead, with its own
@@ -30,6 +34,7 @@ import numpy as np
 
 from crdt_tpu_torch.core.ids import DeleteSet
 from crdt_tpu_torch.core.records import ItemRecord
+from crdt_tpu_torch.core.store import K_GC
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
 _SRC = _REPO_ROOT / "native" / "codec" / "v1codec.cc"
@@ -298,6 +303,149 @@ _COLUMN_KEYS = (
     "right_clock", "kind", "type_ref",
 )
 
+
+def merge_decoded(chunks: Sequence[Dict]) -> Dict:
+    """Concatenate per-chunk decoded column dicts into ONE union,
+    exactly as if the chunks' blobs had gone through a single
+    :func:`decode_updates_columns_any` pass: the ``roots``/``keys``
+    interning tables merge in first-appearance order and every chunk's
+    index columns remap onto the merged tables. This is the seam the
+    streaming executor's background decode workers feed — each worker
+    decodes its blob chunk independently, and the merge is pure numpy.
+
+    Like the single-pass decode, the result is NOT deduped; callers
+    that need the canonical union apply :func:`dedup_columns` (one
+    pass over the merged columns, identical to the one-shot path)."""
+    chunks = [c for c in chunks]
+    if len(chunks) == 1:
+        return chunks[0]
+    if not chunks:
+        return decode_updates_columns_any([])
+    roots: Dict[str, int] = {}
+    keys: Dict[str, int] = {}
+    parts: Dict[str, List[np.ndarray]] = {k: [] for k in _COLUMN_KEYS}
+    contents: List = []
+    ds_parts: List[np.ndarray] = []
+    for c in chunks:
+        root_map = np.asarray(
+            [roots.setdefault(r, len(roots)) for r in c["roots"]],
+            np.int64,
+        )
+        key_map = np.asarray(
+            [keys.setdefault(k, len(keys)) for k in c["keys"]],
+            np.int64,
+        )
+        for name in _COLUMN_KEYS:
+            col = c[name]
+            if name == "parent_root" and len(root_map):
+                col = np.where(
+                    col >= 0, root_map[np.clip(col, 0, None)], col
+                ).astype(col.dtype)
+            elif name == "key_id" and len(key_map):
+                col = np.where(
+                    col >= 0, key_map[np.clip(col, 0, None)], col
+                ).astype(col.dtype)
+            parts[name].append(col)
+        contents.extend(c["contents"])
+        ds_parts.append(np.asarray(c["ds"], np.int64).reshape(-1))
+    out = {k: np.concatenate(parts[k]) for k in _COLUMN_KEYS}
+    out["contents"] = contents
+    out["ds"] = np.concatenate(ds_parts) if ds_parts else np.empty(
+        0, np.int64
+    )
+    out["roots"] = list(roots)
+    out["keys"] = list(keys)
+    _resolve_parents_merged(out)
+    return out
+
+
+def id_index(client, clock) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dense-rank-packed (client, clock) row index for vectorized id
+    lookups: clients rank densely, clocks ride the low 41 bits (the
+    wire bound is 2^40, so the packed key is collision-free for any
+    decodable union). Returns ``(uniq_clients, keys_sorted,
+    rows_sorted)`` for :func:`id_lookup`; duplicate ids resolve to
+    their FIRST-appearing row (the decoder's emplace convention).
+    Shared by the cross-chunk parent resolution below and the
+    streaming executor's partition climb — one home for the bit
+    layout."""
+    client = np.asarray(client, np.int64)
+    clock = np.asarray(clock, np.int64)
+    uniq = np.unique(client)
+    if not len(uniq):
+        return uniq, np.empty(0, np.int64), np.empty(0, np.int64)
+    keys = (np.searchsorted(uniq, client).astype(np.int64) << 41) | clock
+    order = np.lexsort((np.arange(len(keys)), keys))
+    return uniq, keys[order], order
+
+
+def id_lookup(index, qc, qk) -> np.ndarray:
+    """Row of each queried (qc, qk) id under an :func:`id_index`
+    (-1 where absent; duplicate ids give the first-appearing row)."""
+    uniq, keys_sorted, rows_sorted = index
+    qc = np.asarray(qc, np.int64)
+    qk = np.asarray(qk, np.int64)
+    if not len(keys_sorted):
+        return np.full(len(qc), -1, np.int64)
+    qrank = np.searchsorted(uniq, np.clip(qc, uniq[0], None))
+    found_c = (
+        (qc >= 0) & (qrank < len(uniq))
+        & (uniq[np.clip(qrank, 0, len(uniq) - 1)] == qc)
+    )
+    qkey = np.where(found_c, (qrank << 41) | qk, np.int64(-1))
+    pos = np.searchsorted(keys_sorted, qkey)
+    posc = np.clip(pos, 0, len(keys_sorted) - 1)
+    hit = (qkey >= 0) & (keys_sorted[posc] == qkey)
+    return np.where(hit, rows_sorted[posc], np.int64(-1))
+
+
+def _resolve_parents_merged(dec: Dict) -> None:
+    """Cross-chunk implicit-parent resolution, in place.
+
+    Each chunk's decode already resolved origin-else-right chains that
+    stay INSIDE the chunk; rows whose chains cross a chunk boundary
+    come out parentless. This pass re-walks exactly those rows over
+    the merged union — numpy pointer doubling, O(log chain) rounds —
+    with the single-pass decoder's semantics: first-occurrence id
+    index, walk to the first ancestor carrying an explicit parent,
+    copy its parent columns (and key when the row has none), leave
+    cycles and dangling references unresolved."""
+    pr, pc, pk = dec["parent_root"], dec["parent_client"], dec["parent_clock"]
+    kid, kind = dec["key_id"], dec["kind"]
+    n = len(pr)
+    need = (pr < 0) & (pc < 0) & (kind != K_GC)
+    if not need.any():
+        return
+    oc, ock = dec["origin_client"], dec["origin_clock"]
+    rc, rk = dec["right_client"], dec["right_clock"]
+    ref_c = np.where(oc >= 0, oc, rc).astype(np.int64)
+    ref_k = np.where(oc >= 0, ock, rk).astype(np.int64)
+
+    # first-occurrence id index (duplicates may still be present at
+    # this point — dedup runs after, exactly like the one-shot path)
+    index = id_index(dec["client"], dec["clock"])
+    ref_row = id_lookup(index, ref_c, ref_k)
+
+    # pointer doubling to each row's first explicitly-parented
+    # ancestor; node n is the dead-end sink
+    has_explicit = (pr >= 0) | (pc >= 0)
+    f = np.where(
+        has_explicit, np.arange(n, dtype=np.int64),
+        np.where(ref_row >= 0, ref_row, np.int64(n)),
+    )
+    f = np.r_[f, np.int64(n)]  # sink self-loop
+    for _ in range(max(1, (max(n, 2) - 1).bit_length() + 1)):
+        f = f[f]
+    term = f[:n]
+    ok = need & (term < n) & has_explicit[np.clip(term, 0, n - 1)]
+    rows = np.flatnonzero(ok)
+    t = term[rows]
+    pr[rows] = pr[t]
+    pc[rows] = pc[t]
+    pk[rows] = pk[t]
+    fill_key = ok & (kid < 0)
+    rows_k = np.flatnonzero(fill_key)
+    kid[rows_k] = kid[term[rows_k]]
 
 
 def dedup_columns(dec: Dict) -> Dict:

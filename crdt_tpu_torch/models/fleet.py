@@ -353,12 +353,15 @@ def fleet_for_trace(trace: FleetTrace, *, device="cuda") -> ReplicaFleet:
     )
 
 
-def gather_fleet(trace: FleetTrace, out: FleetStep) -> Tuple[list, list, dict]:
+def gather_fleet(trace: FleetTrace, out: FleetStep, *,
+                 device) -> Tuple[list, list, dict]:
     """Assemble a fleet round's outputs back into document form: winner
     rows, their visibility, and per-sequence document orders in the
     union decode's row space — the triple
     :func:`crdt_tpu_torch.models.replay.gather` produces, so
-    materialization is shared."""
+    materialization is shared. The round's kernels ignore right
+    origins, so every parent with a right-bearing sequence row takes
+    the host detour, ranking on ``device``."""
     dec, ds = trace.dec, trace.ds
     rm = trace.row_map.reshape(-1)
     win_rows = _winner_rows(
@@ -370,7 +373,8 @@ def gather_fleet(trace: FleetTrace, out: FleetStep) -> Tuple[list, list, dict]:
         np.asarray(out.seq_seg),
         np.asarray(out.seq_rank),
     )
-    return replay.finish_assembly(dec, ds, win_rows, seq_orders)
+    return replay.finish_assembly(dec, ds, win_rows, seq_orders,
+                                  device=device)
 
 
 def _winner_rows(rm: np.ndarray, winners: np.ndarray,
@@ -456,7 +460,7 @@ def fleet_replay(
         )
     out = fleet.step(trace.cols, trace.dels)
     with tracer.span("gather"):
-        win_rows, win_vis, seq_orders = gather_fleet(trace, out)
+        win_rows, win_vis, seq_orders = gather_fleet(trace, out, device=dev)
     cache = replay.materialize(trace.dec, trace.ds, win_rows, win_vis,
                                seq_orders)
     return replay.ReplayResult(

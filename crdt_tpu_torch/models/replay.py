@@ -17,16 +17,23 @@ sync backlog) end to end:
 
 ``replay_trace(blobs, route="fleet", device=...)`` converges the same
 blobs as ONE replica-fleet gossip + merge round instead
-(:mod:`crdt_tpu_torch.models.fleet`), with steps 4 and 5 shared.
+(:mod:`crdt_tpu_torch.models.fleet`), with steps 4 and 5 shared;
+``route="stream"`` runs the same computation as a chunked,
+double-buffered pipeline (:mod:`crdt_tpu_torch.models.streaming`); and
+``route="host"`` runs the device route's converge on the CPU.
+
+Shapes the packed kernels cannot express take the scalar host
+machinery (:mod:`crdt_tpu_torch.ops.yata`, through
+:class:`crdt_tpu_torch.core.engine.Engine`) at gather time: segments
+the stager marks hard, map rows that carry right origins, and (on the
+fleet route, whose kernels ignore right origins) every parent with a
+right-bearing sequence row.
 
 Cache and snapshot are byte-identical to the reference's on the same
-blobs (tests/test_torch_replay.py, tests/test_torch_fleet.py). Some
-inputs need the reference's scalar host machinery (``ops/yata.py``,
-``core/engine.py``), which a later slice ports; until then each raises
-``NotImplementedError`` naming its ROADMAP.md item instead of giving a
-wrong answer: a union the packed stager cannot express, a plan with
-hard rows, map rows that carry right origins, and (on the fleet route)
-sequence rows that carry right origins.
+blobs (tests/test_torch_replay.py, tests/test_torch_fleet.py,
+tests/test_torch_streaming.py). A union the packed stager cannot
+express raises ``NotImplementedError`` naming its ROADMAP.md item
+instead of giving a wrong answer.
 """
 
 from __future__ import annotations
@@ -38,13 +45,24 @@ import numpy as np
 
 from crdt_tpu_torch.codec import native
 from crdt_tpu_torch.core.ids import DeleteSet
-from crdt_tpu_torch.core.store import K_TYPE, TYPE_MAP
+from crdt_tpu_torch.core.records import ItemRecord
+from crdt_tpu_torch.core.store import K_GC, K_TYPE, TYPE_MAP
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed, staging
 from crdt_tpu_torch.ops.device import resolve_device, xfer_put
+from crdt_tpu_torch.ops.yata import order_hard_segment, order_sequences
 
-# where the missing host fallbacks are queued
-_FALLBACK_ITEM = "ROADMAP.md queue A item 3a (replay host fallbacks)"
+# where the missing fallback for unstageable unions is queued
+_UNSTAGEABLE_ITEM = "ROADMAP.md queue A item 7 (ResidentColumns)"
+
+
+def unstageable_union() -> NotImplementedError:
+    """The error every route raises for a union past the packed
+    stager's bounds (the reference's resident fallback)."""
+    return NotImplementedError(
+        "union exceeds the packed stager's bounds; the resident "
+        f"fallback is not ported yet ({_UNSTAGEABLE_ITEM})"
+    )
 
 
 class ReplayResult(NamedTuple):
@@ -83,15 +101,7 @@ def converge(cols: Dict[str, np.ndarray], *, device="cuda"):
         put = partial(xfer_put, device=dev)
     plan = staging.stage(cols, put=put)
     if plan is None:
-        raise NotImplementedError(
-            "union exceeds the packed stager's bounds; the resident "
-            f"fallback is not ported yet ({_FALLBACK_ITEM})"
-        )
-    if plan.hard_rows:
-        raise NotImplementedError(
-            f"{len(plan.hard_rows)} sequence segment(s) need the scalar "
-            f"YATA fallback, which is not ported yet ({_FALLBACK_ITEM})"
-        )
+        raise unstageable_union()
     return ("packed", packed.converge(plan, device=dev))
 
 
@@ -107,37 +117,39 @@ def parent_spec(dec: Dict, row: int) -> Tuple:
     )
 
 
-def gather(dec: Dict, ds: DeleteSet, handle):
+def gather(dec: Dict, ds: DeleteSet, handle, *, device):
     """Winner rows + visibility + per-sequence document orders (keyed
     by parent spec — root name or item id) from a :func:`converge`
-    handle. Right origins of sequence rows were ordered at staging
-    (their exact conflict-scan ranks ride the client column)."""
+    handle.
+
+    Right origins: the packed path orders attachment groups at staging
+    (the exact conflict-scan ranks ride the client column), so only
+    segments carrying shapes the sibling-rank model cannot express (the
+    plan's ``hard_rows``) re-order on the host, ranking on ``device``."""
     with get_tracer().span("gather"):
         win_rows, seq_orders = _assemble_packed(dec, handle[1])
+        hard = handle[1].hard_rows
+        if hard:
+            affected = {parent_spec(dec, int(r)) for r in hard}
+            seq_orders.update(_host_seq_orders(dec, affected, device=device))
         return finish_assembly(dec, ds, win_rows, seq_orders,
-                               blanket_rights=False)
+                               device=device, blanket_rights=False)
 
 
-def finish_assembly(dec: Dict, ds: DeleteSet, win_rows, seq_orders,
-                    *, blanket_rights: bool = True):
+def finish_assembly(dec: Dict, ds: DeleteSet, win_rows, seq_orders, *,
+                    device, blanket_rights: bool = True):
     """Shared assembly tail of every convergence engine (packed,
-    fleet): the blanket right-origin detour, then the crafted-map-chain
-    check and winner visibility.
-
-    ``blanket_rights`` is for producers that ignore right origins
-    entirely (the fleet round): the reference re-orders every parent
-    with a right-bearing sequence row through its scalar host YATA,
-    which is not ported yet, so such rows raise. The packed converge
-    ordered its expressible rights at staging and passes False."""
+    fleet): the blanket right-origin host detour — applied when the
+    producing kernels ignore rights entirely (the fleet round), skipped
+    when the producer already ordered its expressible rights at
+    staging — then crafted-map-chain repair and winner visibility. One
+    implementation, so a right-origin fix reaches every route."""
     if blanket_rights:
         rc_col, kid_col = dec["right_client"], dec["key_id"]
         right_seq_rows = np.flatnonzero((rc_col >= 0) & (kid_col < 0))
         if len(right_seq_rows):
-            raise NotImplementedError(
-                f"{len(right_seq_rows)} sequence row(s) carry right "
-                "origins, which this engine leaves to the scalar YATA "
-                f"host detour, not ported yet ({_FALLBACK_ITEM})"
-            )
+            affected = {parent_spec(dec, int(r)) for r in right_seq_rows}
+            seq_orders.update(_host_seq_orders(dec, affected, device=device))
     win_rows = _fix_map_chains_with_rights(dec, win_rows)
     win_vis = visible_mask(dec, win_rows, ds)
     return win_rows, win_vis, seq_orders
@@ -160,37 +172,140 @@ def segment_bound(cols: Dict[str, np.ndarray]) -> int:
     return len(np.unique(segment_key(cols["parent_a"], cols["key_id"])))
 
 
-def _assemble_packed(dec: Dict, res):
-    """Vectorized host assembly of the packed converge's one fetch:
-    winner rows, and each sequence's rows in document order keyed by
-    parent spec."""
-    win_rows = res.win_rows[res.win_rows >= 0].tolist()
+def _assemble_packed(dec: Dict, res, row_map=None):
+    """Vectorized host assembly of the packed kernel's one fetch.
+    ``row_map`` translates the result's row space into ``dec``'s (the
+    streaming executor stages each chunk's rows separately, so its
+    results come back chunk-local); None means they already agree."""
+    win = res.win_rows[res.win_rows >= 0]
     m = res.stream_row >= 0
     rows, segs = res.stream_row[m], res.stream_seg[m]
+    if row_map is not None:
+        win = row_map[win]
+        rows = row_map[rows]
+    win_rows = win.tolist()
     seq_orders: dict = {}
     if len(rows):
         cuts = np.r_[0, np.flatnonzero(segs[1:] != segs[:-1]) + 1, len(segs)]
         for a, b in zip(cuts[:-1], cuts[1:]):
             chunk = rows[a:b].tolist()
-            # extend on recurrence, exactly as the reference assembles
-            seq_orders.setdefault(parent_spec(dec, chunk[0]), []).extend(
-                chunk
-            )
+            spec = parent_spec(dec, chunk[0])
+            # extend on recurrence: a split list's pieces come back
+            # as separate runs in exact piece order, so appending
+            # reproduces the unsplit stream bit-for-bit
+            if spec in seq_orders:
+                seq_orders[spec].extend(chunk)
+            else:
+                seq_orders[spec] = chunk
     return win_rows, seq_orders
 
 
-def _fix_map_chains_with_rights(dec: Dict, win_rows):
+def _host_seq_orders(dec: Dict, specs_needed: set, *, device):
+    """Exact sequence orders for the given parent specs via the host
+    machinery (right origins, attachment groups, hostile shapes).
+
+    The subset keeps full-union semantics: every id referenced from the
+    subset but living OUTSIDE it (GC fillers, foreign parents' rows)
+    joins as a GC stub — the ordering machinery then drops/hardens
+    those references exactly as it would with the whole union in hand,
+    while truly dangling references stay absent (members pend). The
+    ranking runs on ``device``."""
+    kid_col, kind_col = dec["key_id"], dec["kind"]
+    n = len(kid_col)
+    rows = [
+        i for i in range(n)
+        if kid_col[i] < 0 and kind_col[i] != K_GC
+        and parent_spec(dec, i) in specs_needed
+    ]
+    records, _ = native.decoded_to_records(dec, rows)
+    sub_ids = {r.id for r in records}
+    id_row = {
+        (int(dec["client"][i]), int(dec["clock"][i])): i for i in range(n)
+    }
+    stubs = {
+        ref
+        for r in records
+        for ref in (r.origin, r.right)
+        if ref is not None and ref not in sub_ids and ref in id_row
+    }
+    records += [
+        ItemRecord(client=c, clock=k, kind=K_GC) for c, k in stubs
+    ]
+    return {
+        spec: [id_row[i] for i in ids]
+        for spec, ids in order_sequences(records, device=device).items()
+        if spec in specs_needed
+    }
+
+
+def _fix_map_chains_with_rights(dec: Dict, win_rows, bad_rows=None,
+                                chain_rows=None, union_ids=None):
     """Crafted rights on MAP rows shift chain tails in ways the argmax
-    kernel cannot express; the reference recomputes those chains'
-    tails through the scalar chain order, which is not ported yet."""
+    kernel cannot express; recompute exactly those chains' tails via
+    the scalar chain order. The optional subsets are the streaming
+    executor's seams: ``bad_rows`` restricts the repair to a chunk's
+    right-bearing map rows (so one chunk never emits another chunk's
+    tails), ``chain_rows`` restricts the chain-membership scan to the
+    chunk's rows (sound because segments never split across chunks),
+    and ``union_ids`` shares one precomputed whole-union id set across
+    chunks instead of rebuilding it per call. Defaults scan the whole
+    union."""
     rc_col, kid_col = dec["right_client"], dec["key_id"]
-    bad = np.flatnonzero((rc_col >= 0) & (kid_col >= 0))
-    if len(bad):
-        raise NotImplementedError(
-            f"{len(bad)} map row(s) carry right origins; their chain "
-            f"repair is not ported yet ({_FALLBACK_ITEM})"
+    if bad_rows is None:
+        bad = np.flatnonzero((rc_col >= 0) & (kid_col >= 0))
+    else:
+        bad = np.asarray(bad_rows, np.int64)
+    if not len(bad):
+        return win_rows
+    affected = {(parent_spec(dec, int(r)), int(kid_col[r])) for r in bad}
+    chains: Dict[Tuple, List[int]] = {}
+    for i in (range(len(kid_col)) if chain_rows is None else chain_rows):
+        i = int(i)
+        if kid_col[i] >= 0:
+            key = (parent_spec(dec, i), int(kid_col[i]))
+            if key in affected:
+                chains.setdefault(key, []).append(i)
+    id_row = {
+        (int(dec["client"][i]), int(dec["clock"][i])): i
+        for rows in chains.values()
+        for i in rows
+    }
+    if union_ids is None:
+        union_ids = {
+            (int(dec["client"][i]), int(dec["clock"][i]))
+            for i in range(len(kid_col))
+        }
+    patched = dict.fromkeys(affected)
+    for key, rows in chains.items():
+        recs = [
+            ItemRecord(
+                client=int(dec["client"][i]), clock=int(dec["clock"][i]),
+                origin=(
+                    (int(dec["origin_client"][i]),
+                     int(dec["origin_clock"][i]))
+                    if dec["origin_client"][i] >= 0 else None
+                ),
+                right=(
+                    (int(dec["right_client"][i]),
+                     int(dec["right_clock"][i]))
+                    if dec["right_client"][i] >= 0 else None
+                ),
+                parent_root="x",  # chain order ignores parent identity
+            )
+            for i in rows
+        ]
+        ordered = order_hard_segment(
+            recs, ref_exists=lambda ref: ref in union_ids
         )
-    return win_rows
+        patched[key] = id_row[ordered[-1]] if ordered else None
+    out = []
+    for row in win_rows:
+        key = (parent_spec(dec, row), int(kid_col[row]))
+        if key in affected:
+            continue  # replaced by the exact tail below
+        out.append(row)
+    out.extend(r for r in patched.values() if r is not None)
+    return out
 
 
 def rows_visible(
@@ -342,12 +457,10 @@ def compact(dec: Dict, ds: DeleteSet) -> bytes:
         return native.encode_from_columns_any(dec, ds)
 
 
-# the reference's other routes and the ROADMAP.md items that port them
+# the reference's other routes and the ROADMAP.md item that ports them
 _UNPORTED_ROUTES = {
-    "host": "queue A item 3a (replay host fallbacks)",
     "auto": "queue A item 5 (incremental engine)",
     "replica": "queue A item 5 (incremental engine)",
-    "stream": "queue A item 4 (streaming executor)",
 }
 
 
@@ -357,13 +470,23 @@ def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
     converged on ``device`` (the card unless the caller asks for the
     CPU; with no card present a CUDA request raises).
 
-    ``route`` picks the convergence engine: ``"device"`` (default) the
-    packed one-dispatch converge of the whole union; ``"fleet"`` treats
-    each blob as one replica's pending broadcast and converges the set
-    as ONE gossip + merge round
-    (:func:`crdt_tpu_torch.models.fleet.fleet_replay`). The reference's
-    other routes raise ``NotImplementedError`` naming their ROADMAP.md
-    item."""
+    ``route`` picks the convergence engine:
+
+    - ``"device"`` (default): the packed one-dispatch converge of the
+      whole union;
+    - ``"stream"``: the same converge as a chunked, double-buffered
+      pipeline, one converge per shard of whole root subtrees
+      (:func:`crdt_tpu_torch.models.streaming.stream_replay`);
+    - ``"fleet"``: each blob is one replica's pending broadcast and the
+      set converges as ONE gossip + merge round
+      (:func:`crdt_tpu_torch.models.fleet.fleet_replay`);
+    - ``"host"``: the device route's converge with wide staging, run on
+      the CPU whatever ``device`` says (naming the route is how the
+      caller asks for the host); it launches nothing on the card and
+      its ``path`` is ``"host"``.
+
+    The reference's ``"auto"`` and ``"replica"`` routes raise
+    ``NotImplementedError`` naming their ROADMAP.md item."""
     if route in _UNPORTED_ROUTES:
         raise NotImplementedError(
             f"route={route!r} is not ported yet "
@@ -373,15 +496,46 @@ def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
         from crdt_tpu_torch.models.fleet import fleet_replay
 
         return fleet_replay(blobs, device=device)
+    if route == "stream":
+        from crdt_tpu_torch.models.streaming import stream_replay
+
+        return stream_replay(blobs, device=device)
+    if route == "host":
+        return _replay_host(blobs)
     if route != "device":
         raise ValueError(f"unknown route {route!r}")
     dev = resolve_device(device)
     dec = decode(blobs)
     cols, ds = stage(dec)
-    handle = converge(cols, device=dev)
-    win_rows, win_vis, seq_orders = gather(dec, ds, handle)
+    return _finish(dec, ds, converge(cols, device=dev), dev, "device")
+
+
+def _replay_host(blobs: Sequence[bytes]) -> ReplayResult:
+    """``route="host"``: the packed converge on the CPU. Wide staging:
+    nothing crosses a link, so the narrow encode and its widening
+    prelude would be pure overhead."""
+    cpu = resolve_device("cpu")
+    dec = decode(blobs)
+    cols, ds = stage(dec)
+    plan = staging.stage(cols, wide=True)
+    if plan is None:
+        # the reference hands an inexpressible plan to its replica
+        # engine, which a later slice ports
+        raise NotImplementedError(
+            "route='host' on a union past the packed stager's bounds "
+            "needs the replica engine, not ported yet (ROADMAP.md "
+            f"{_UNPORTED_ROUTES['replica']})"
+        )
+    handle = ("packed", packed.converge(plan, device=cpu))
+    return _finish(dec, ds, handle, cpu, "host")
+
+
+def _finish(dec: Dict, ds: DeleteSet, handle, device,
+            path: str) -> ReplayResult:
+    """Gather, materialize and compact one converged union."""
+    win_rows, win_vis, seq_orders = gather(dec, ds, handle, device=device)
     cache = materialize(dec, ds, win_rows, win_vis, seq_orders)
     return ReplayResult(
         cache=cache, snapshot=compact(dec, ds), n_ops=len(dec["client"]),
-        path="device",
+        path=path,
     )

@@ -1,11 +1,11 @@
 """Seeded v1 wire traces for the cold replay, built without the
 reference package.
 
-The port's copies of ``bench.py:build_trace`` and
-``bench.py:build_conflict_trace``: the same generators, seeds and
-record shapes, so a trace built here is byte-identical to the
-benchmark's (tests/test_torch_replay.py). ``chip_smoke.py`` builds its
-inputs with these.
+The port's copies of ``bench.py:build_trace``,
+``bench.py:build_conflict_trace`` and ``bench.py:build_text_trace``:
+the same generators, seeds and record shapes, so a trace built here is
+byte-identical to the benchmark's (tests/test_torch_replay.py).
+``chip_smoke.py`` builds its inputs with these.
 """
 
 from __future__ import annotations
@@ -116,5 +116,35 @@ def build_conflict_trace(R: int, K: int, seed: int = 2):
                 origin=origin, content=k,
             ))
             prev[lst] = k
+        blobs.append(v1.encode_update(recs, DeleteSet()))
+    return blobs
+
+
+def build_text_trace(R: int, K: int, seed: int = 3):
+    """Collaborative-text shape: every replica types its own runs into
+    one shared document; 20% of ops are mid-inserts carrying BOTH
+    origins (left = predecessor, right = the character that followed
+    at insert time) — the workload whose right origins route ordering
+    through the exact host machinery on the fleet route, and through
+    the stager's attachment-group ranks on the packed routes."""
+    rng = np.random.default_rng(seed)
+    blobs = []
+    for r in range(R):
+        client = r + 1
+        recs = []
+        chain: list = []  # own chars in own document order
+        for k in range(K):
+            if chain and rng.random() < 0.2:
+                j = int(rng.integers(0, len(chain)))
+                recs.append(ItemRecord(
+                    client=client, clock=k, parent_root="text",
+                    origin=chain[j - 1] if j > 0 else None,
+                    right=chain[j], content=k))
+                chain.insert(j, (client, k))
+            else:
+                recs.append(ItemRecord(
+                    client=client, clock=k, parent_root="text",
+                    origin=chain[-1] if chain else None, content=k))
+                chain.append((client, k))
         blobs.append(v1.encode_update(recs, DeleteSet()))
     return blobs

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from crdt_tpu_torch.ops import deleteset as ds_ops
@@ -32,6 +33,14 @@ from crdt_tpu_torch.ops.device import (
 from crdt_tpu_torch.ops.lww import map_winners
 
 _ID_SENTINEL = 1 << 62  # sorts invalid rows after every real id
+
+
+def _pad_to(arr: np.ndarray, size: int, fill) -> np.ndarray:
+    """``arr`` padded with ``fill`` to ``size`` (host helper of the
+    bucketed host orderings)."""
+    out = np.full(size, fill, dtype=arr.dtype)
+    out[: len(arr)] = arr
+    return out
 
 
 def sort_by_id(cols):

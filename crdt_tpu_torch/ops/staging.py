@@ -16,7 +16,7 @@ encodings) are left out: the port runs on one card.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
@@ -28,6 +28,7 @@ from crdt_tpu_torch.ops.device import (
     record_staged_widths,
     wide_staging_forced,
 )
+from crdt_tpu_torch.ops.yata import _simulate_group
 
 # host-side packing limits for the composite segment key:
 # (is_map:1 | pref:25 bits | kid:21 bits) must fit non-negative int64
@@ -302,47 +303,6 @@ def _even_up(x: int) -> int:
     one extra round; kept so a plan's bounds equal the reference
     stager's field by field."""
     return x + (x & 1)
-
-
-def _simulate_group(sibs: List[dict], member_ids: set) -> List[Tuple[int, int]]:
-    """Exact group-local replay of the Yjs conflict scan.
-
-    ``sibs``: [{id, client, clock, right}] of one origin group. Returns
-    member ids in final order. Items are integrated in causal rounds
-    (an item whose right origin is an unplaced member waits); within a
-    round, processing order is (client, clock) — convergence makes any
-    causal order equivalent.
-    """
-    remaining = sorted(sibs, key=lambda s: (s["client"], s["clock"]))
-    placed: List[dict] = []
-    placed_ids: set = set()
-    while remaining:
-        progress = False
-        still = []
-        for s in remaining:
-            anchor = s["right"] if s["right"] in member_ids else None
-            if anchor is not None and anchor not in placed_ids:
-                still.append(s)
-                continue
-            left = -1
-            for i, t in enumerate(placed):
-                if anchor is not None and t["id"] == anchor:
-                    break
-                if t["client"] < s["client"]:
-                    left = i
-                elif t["client"] > s["client"] and t["right"] == s["right"]:
-                    break
-            placed.insert(left + 1, s)
-            placed_ids.add(s["id"])
-            progress = True
-        if not progress:
-            # malformed input (anchor cycle): append rest deterministically
-            for s in still:
-                placed.append(s)
-                placed_ids.add(s["id"])
-            still = []
-        remaining = still
-    return [s["id"] for s in placed]
 
 
 def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,

@@ -227,12 +227,15 @@ class TestFleetReplay:
 
 class TestOutsideTheSlice:
     def test_right_bearing_sequence_rows_raise(self, mesh1):
-        # mid-inserts carry right origins: the reference re-orders
-        # their parents through its scalar host YATA (not ported)
+        # mid-inserts carry right origins: both packages re-order their
+        # parents through the scalar host YATA
         blobs = build_round_blobs(4, 6, seed=4)
-        ref_fleet.fleet_replay(blobs, mesh=mesh1)  # the reference copes
-        with pytest.raises(NotImplementedError, match="item 3a"):
-            replay_trace(blobs, route="fleet", device="cpu")
+        dec = ref_rp.decode(blobs)
+        assert np.any((dec["right_client"] >= 0) & (dec["key_id"] < 0))
+        want = ref_fleet.fleet_replay(blobs, mesh=mesh1)
+        got = replay_trace(blobs, route="fleet", device="cpu")
+        _assert_same_replay(got, want)
+        _assert_same_replay(got, replay_trace(blobs, device="cpu"))
 
     @pytest.mark.parametrize("shard", ["segments", "sharded"])
     def test_multi_device_mappings_raise(self, shard):
@@ -241,8 +244,7 @@ class TestOutsideTheSlice:
                                shard=shard)
 
     @pytest.mark.parametrize("route,item", [
-        ("host", "3a"), ("auto", "item 5"), ("replica", "item 5"),
-        ("stream", "item 4"),
+        ("auto", "item 5"), ("replica", "item 5"),
     ])
     def test_unported_routes_raise(self, route, item):
         with pytest.raises(NotImplementedError, match=item):

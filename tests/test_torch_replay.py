@@ -5,11 +5,11 @@ the CPU.
 Cache and compacted snapshot must be byte-identical on the
 benchmark's own trace shapes (built by the port's copy of the
 generators, which must emit the benchmark's exact bytes), the
-subtree-split and transfer-diet traces, and every Yjs wire fixture the
-packed stager expresses. The fixtures it cannot express (hard rows,
-right-bearing map rows) must raise NotImplementedError rather than
-answer wrongly, and an entry point asked for the card without one must
-raise.
+subtree-split and transfer-diet traces, every Yjs wire fixture (alone
+and as one union), and the shapes the packed kernels leave to the
+scalar host machinery (hard rows, right-bearing map rows). A union past
+the stager's bounds must raise NotImplementedError rather than answer
+wrongly, and an entry point asked for the card without one must raise.
 """
 
 import json
@@ -56,7 +56,7 @@ def _assert_identical(blobs):
 
 
 def _expressible(blobs) -> bool:
-    """Does the port's slice cover this union? (no hard rows, no
+    """Do the packed kernels alone order this union? (no hard rows, no
     right-bearing map rows, inside the stager's bounds)"""
     dec = ref_rp.decode(blobs)
     cols, _ = ref_rp.stage(dec)
@@ -78,6 +78,16 @@ class TestTraces:
         blobs = traces.build_conflict_trace(R, K)
         assert blobs == bench.build_conflict_trace(R, K)
         _assert_identical(blobs)
+
+    @pytest.mark.parametrize("R,K", [(12, 30), (20, 40)])
+    def test_build_text_trace(self, R, K):
+        blobs = traces.build_text_trace(R, K)
+        assert blobs == bench.build_text_trace(R, K)
+        want = _assert_identical(blobs)
+        for route in ("stream", "fleet", "host"):
+            got = replay_trace(blobs, route=route, device="cpu")
+            assert got.cache == want.cache
+            assert got.snapshot == want.snapshot
 
     @pytest.mark.parametrize("seed", [0, 1])
     def test_subtree_split_traces(self, seed, monkeypatch):
@@ -131,27 +141,16 @@ FIXTURES = {
 class TestWireFixtures:
     @pytest.mark.parametrize("name", sorted(FIXTURES))
     def test_fixture(self, name):
-        blobs = [FIXTURES[name]]
-        if _expressible(blobs):
-            _assert_identical(blobs)
-        else:
-            ref_rp.replay_trace(blobs, route="device")  # the reference copes
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                replay_trace(blobs, device="cpu")
+        _assert_identical([FIXTURES[name]])
 
     def test_all_fixtures_in_one_union(self):
-        blobs = list(FIXTURES.values())
-        if _expressible(blobs):
-            _assert_identical(blobs)
-        else:
-            with pytest.raises(NotImplementedError):
-                replay_trace(blobs, device="cpu")
+        _assert_identical(list(FIXTURES.values()))
 
 
 class TestOutsideTheSlice:
     def test_hard_rows_raise(self):
-        # a dangling right origin makes its segment HARD (the scalar
-        # fallback the reference runs on the host, not ported yet)
+        # a dangling right origin makes its segment HARD: the scalar
+        # integrate orders it on the host, as in the reference
         recs = [
             ItemRecord(client=1, clock=0, parent_root="t", content="a"),
             ItemRecord(client=2, clock=0, parent_root="t", origin=(1, 0),
@@ -161,9 +160,7 @@ class TestOutsideTheSlice:
         dec = ref_rp.decode(blobs)
         cols, _ = ref_rp.stage(dec)
         assert ref_packed.stage(cols).hard_rows
-        ref_rp.replay_trace(blobs, route="device")
-        with pytest.raises(NotImplementedError, match="scalar YATA"):
-            replay_trace(blobs, device="cpu")
+        _assert_identical(blobs)
 
     def test_right_bearing_map_rows_raise(self):
         recs = [
@@ -175,8 +172,7 @@ class TestOutsideTheSlice:
         blobs = [ref_v1.encode_update(recs, DeleteSet())]
         dec = ref_rp.decode(blobs)
         assert np.any((dec["right_client"] >= 0) & (dec["key_id"] >= 0))
-        with pytest.raises(NotImplementedError, match="map row"):
-            replay_trace(blobs, device="cpu")
+        _assert_identical(blobs)
 
     def test_unstageable_union_raises(self):
         # a clock past the 40-bit packing bound: the reference falls
@@ -193,7 +189,7 @@ class TestOutsideTheSlice:
             "valid": np.ones(1, bool),
         }
         assert ref_packed.stage(cols) is None
-        with pytest.raises(NotImplementedError, match="bounds"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             rp.converge(cols, device="cpu")
 
 
