@@ -318,7 +318,7 @@ def main() -> int:
                                            lib.seg_argmax_scan_tile())
             else:
                 chip_smoke.scatter_edge_cases(torch, dev, g, ri, hold)
-        except (AssertionError, RuntimeError) as e:
+        except (AssertionError, RuntimeError, _build.KernelError) as e:
             broken[(variant, name)] = str(e).splitlines()[0]
             continue
         fns[(variant, name)] = fn

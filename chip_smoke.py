@@ -34,7 +34,18 @@ JAX or of the reference package. Phases, each fatal on failure:
      ops, 20% mid-inserts with right origins) on the device, stream
      and fleet routes: all three equal on the card and equal to the
      CPU;
-  7. time each kernel on the inputs each card run gave it (CUDA events
+  7. the live replica (``IncrementalReplay``, :func:`incremental_phase`):
+     the 1000 x 1600 trace ingested in one device round, then the
+     steady-state rounds of ``bench.py`` (map-only deltas of 1000, 16000
+     and 64000 ops, each size forced to the host and to the device, and
+     a 4000-op delta that appends to the doc's lists), each device round
+     one ``stream_scatter`` launch at ``packed._rank_compact`` held
+     against its plain version; the replica equals the cold device
+     route on the union and its full-state encode replays to the same
+     cache; the same procedure at 1000 x 100 equals the CPU byte for
+     byte; ``route="auto"`` and ``route="replica"`` equal the device
+     route;
+  8. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
      version and (where one exists) one library call; then count how
@@ -84,6 +95,8 @@ ROUTE_KERNELS = {
     "device": ("seg_argmax_scan", "stream_scatter"),
     "stream": ("seg_argmax_scan", "stream_scatter"),
     "fleet": ("ds_mask", "sv_deficit"),
+    # the live replica's device round: packed._rank_compact
+    "incremental": ("stream_scatter",),
 }
 
 PHASES = {
@@ -245,6 +258,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
 
+    # seconds each phase took, for the run's time budget
+    phase_s: dict = {}
+    mark = [time.perf_counter()]
+
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = round(now - mark[0], 3)
+        mark[0] = now
+
     # ---- 1. the card ---------------------------------------------------
     smi = smi_line()
     log(f"card: {smi}")
@@ -252,6 +274,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    from crdt_tpu_torch.codec import native
     from crdt_tpu_torch.models import fleet, streaming
     from crdt_tpu_torch.models import replay as rp
     from crdt_tpu_torch.models import traces
@@ -270,6 +293,14 @@ def main() -> int:
                    (packed_mod, "stream_scatter")),
         "fleet": ((deleteset, "ds_mask"), (statevec, "sv_deficit")),
     }
+
+    # every route decodes through the port's native codec; the Python
+    # codec would give the same answers, slower, and hide a broken build
+    if not native.available():
+        return fail(f"native codec: {native._build_error}")
+    log("native codec: built and loaded")
+
+    done("1 card")
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -301,6 +332,8 @@ def main() -> int:
     def hold_kernel(name: str, *args) -> None:
         hold(name, getattr(kernels, name)(*args),
              getattr(kernels, name + "_plain")(*args))
+
+    done("2 build")
 
     # ---- 3. edge cases -------------------------------------------------
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -354,6 +387,7 @@ def main() -> int:
     # the first profiling session of a process may trace no device
     # activity while CUPTI starts up: open and discard one
     traced_device(torch, lambda: torch.ones(1, device=dev))
+    done("3 edge cases")
 
     plans = [
         ("trace_1000x100", lambda: traces.build_trace(1000, 100, seed=0)),
@@ -483,6 +517,8 @@ def main() -> int:
         busy_share(label, "device", blobs)
         hold_run_inputs(label, "device")
 
+    done("4 device route")
+
     # ---- 5. the fleet route and the delta round -------------------------
     for i, (label, _) in enumerate(plans):
         blobs = blobs_of[label]
@@ -500,6 +536,7 @@ def main() -> int:
         busy_share(label, "fleet", blobs)
         hold_run_inputs(label, "fleet")
     delta_round_check(torch, fleet, kernels, synth_resident_columns)
+    done("5 fleet route")
 
     # ---- 6. the stream route and the text trace --------------------------
     for i, (label, _) in enumerate(plans):
@@ -537,8 +574,17 @@ def main() -> int:
         busy_share(label, route, blobs)
         hold_run_inputs(label, route, key=key)
     log(f"{label}: device, stream and fleet routes on the card == CPU")
+    done("6 stream route, text trace")
 
-    # ---- 7. timing at the main path's shapes ---------------------------
+    # ---- 7. the live replica -------------------------------------------
+    # the scatter's launches at this call site get a row of their own
+    # in the kernels line, at this call site's shape
+    inc_seen, inc_launches = incremental_phase(
+        torch, rp, traces, kernels, packed_mod, blobs_of, device_results,
+        same, hold_kernel)
+    done("7 live replica")
+
+    # ---- 8. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
         if label.startswith("text"):
             continue  # held above; the text trace's shapes are small
@@ -557,6 +603,13 @@ def main() -> int:
                               for a in args] for args in calls]
                       for name, calls in seen.items()}
             log(f"stream shard inputs ({label}): {json.dumps(shapes)}")
+    # the scatter at the live replica's call site, at the ingest's shape
+    inc_rows = kernel_rows(torch, kernels, {"stream_scatter": inc_seen},
+                           {"stream_scatter": inc_launches}, max_err)
+    for r in inc_rows:
+        r["path"] = "incremental"
+    log("kernel times (incremental ingest, packed._rank_compact): "
+        + json.dumps(inc_rows))
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -564,19 +617,263 @@ def main() -> int:
     log("profiler check: 50 calls of seg_argmax_scan (2 launches each: "
         "clear_words and scan_tiles, 100 activities) traced (activities, "
         f"device ms a call) {json.dumps(checks)}")
+    done("8 kernel times")
+    log(f"seconds a phase: {json.dumps(phase_s)}; total "
+        f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
-    print(json.dumps({"kernels": scale_rows}), flush=True)
+    print(json.dumps({"kernels": scale_rows + inc_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def sync_report(torch, streaming, blobs) -> None:
-    """One more card stream replay under
+def steady_rounds(traces, base_blobs, n_ops: int, n_replicas: int, sizes,
+                  list_ops: int, device: str, sync_probe=None) -> dict:
+    """The steady-state shape of ``bench.py``'s rounds leg through the
+    port's live replica on ``device``: ingest ``base_blobs`` (``n_ops``
+    ops from ``n_replicas`` writers) into ``IncrementalReplay`` under
+    the auto rule, then for each delta size six map-only deltas (one
+    warm round forced to the device, two forced to the host, one device
+    round that flushes the host backlog, two timed device rounds), then
+    one list-touching delta (``map_frac=0.6``) forced to the device.
+    With ``sync_probe`` one more map-only delta runs forced to the
+    device inside ``sync_probe(run)``. Fails when the ingest is not one
+    device round. Returns the replica, the union of every blob it took,
+    the rounds it ran on the device, the state vectors after the ingest
+    and after each size, and the timings."""
+    from crdt_tpu_torch.models.incremental import IncrementalReplay
+    from crdt_tpu_torch.obs import get_tracer
+    from crdt_tpu_torch.ops import packed as pk
+    from crdt_tpu_torch.ops.device import bucket_pow2
+
+    def h2d() -> int:
+        return get_tracer().counters("xfer.h2d_bytes").get(
+            "xfer.h2d_bytes", 0)
+
+    def spans() -> dict:
+        # the replica's own spans (incremental.decode, .admit, .dispatch,
+        # .readback, .host_order, .cache), total seconds so far
+        return {k: v["total_s"] for k, v in
+                get_tracer().report()["spans"].items()
+                if k.startswith("incremental.")}
+
+    def timed_apply(inc, blobs) -> float:
+        t0 = time.perf_counter()
+        inc.apply(blobs)
+        return time.perf_counter() - t0
+
+    k_d = 50
+    total = 6 * sum(sizes) + list_ops + (1000 if sync_probe else 0)
+    cap = bucket_pow2(n_ops + 2 * total)
+    d0 = pk.device_dispatch_count
+    inc = IncrementalReplay(capacity=cap, device=device)
+    ingest_s = timed_apply(inc, base_blobs)
+    if pk.device_dispatch_count != d0 + 1:
+        raise AssertionError(f"ingest on {device} was not one device round")
+    svs = [inc.state_vector()]
+    ingest_spans = spans()
+    all_blobs = list(base_blobs)
+    cbase = n_replicas + 1000
+    table: dict = {}
+    crossover = None
+
+    def deltas(n, count, map_frac=1.0):
+        # bench.py's deltas: fresh writers past every earlier client
+        nonlocal cbase
+        r_d = max(1, n // k_d)
+        out = [traces.build_trace(r_d, k_d, seed=500 + cbase + i,
+                                  client_base=cbase + i * r_d,
+                                  map_frac=map_frac)
+               for i in range(count)]
+        cbase += count * r_d
+        for d in out:
+            all_blobs.extend(d)
+        return out
+
+    for d_ops in sizes:
+        ds = deltas(d_ops, 6)
+        inc.device_min_rows = 0
+        inc.apply(ds[0])                          # warm
+        inc.device_min_rows = 1 << 62             # forced to the host
+        t_host = min(timed_apply(inc, d) for d in ds[1:3])
+        inc.device_min_rows = 0
+        inc.apply(ds[3])                          # flush the host backlog
+        b0 = h2d()
+        t_dev = min(timed_apply(inc, d) for d in ds[4:6])
+        table[str(d_ops)] = {
+            "host_round_s": t_host,
+            "device_round_s": t_dev,
+            "device_round_h2d_bytes": (h2d() - b0) // 2,
+        }
+        if crossover is None and t_dev < t_host:
+            crossover = d_ops
+        svs.append(inc.state_vector())
+    (d,) = deltas(list_ops, 1, map_frac=0.6)
+    inc.device_min_rows = 0
+    b0 = h2d()
+    table[f"{list_ops} list"] = {"device_round_s": timed_apply(inc, d),
+                                 "device_round_h2d_bytes": h2d() - b0}
+    device_rounds = 1 + 4 * len(sizes) + 1
+    syncs = None
+    if sync_probe is not None:
+        (d,) = deltas(1000, 1)
+        syncs = sync_probe(lambda: inc.apply(d))
+        device_rounds += 1
+    inc.device_min_rows = None  # back to the auto rule
+    rounds_spans = {k: v - ingest_spans.get(k, 0.0)
+                    for k, v in spans().items()}
+    return dict(inc=inc, all_blobs=all_blobs, device_rounds=device_rounds,
+                svs=svs, ingest_s=ingest_s, table=table, crossover=crossover,
+                syncs=syncs, cap=cap, spans={"ingest": ingest_spans,
+                                             "rounds": rounds_spans})
+
+
+def incremental_phase(torch, rp, traces, kernels, packed_mod, blobs_of,
+                      device_results, same, hold_kernel) -> tuple:
+    """The live replica (``IncrementalReplay``) on the card.
+
+    1. :func:`steady_rounds` at full width: the 1000 x 1600 scale trace
+       ingested in one device round, map-only deltas of 1000, 16000 and
+       64000 ops and a 4000-op list-touching delta, one more forced
+       device round under the sync debug mode; then a second fresh
+       ingest (warm). Counts are zeroed just before and read just
+       after: ``stream_scatter`` must launch once per device round and
+       no other kernel at all, ``count_device_dispatch`` must equal the
+       rounds forced to the device, and ``device.dispatch_errors`` and
+       ``device.fallback`` must be 0. The scatter must equal its plain
+       version on every round's inputs.
+    2. The replica's cache equals the card's cold device route on the
+       union of every blob, and its full-state encode replays to the
+       same cache.
+    3. The same procedure on 1000 x 100 (delta sizes 250 and 1000, a
+       1000-op list round) on the card and on the CPU: cache, state
+       vector, full-state and diff encodes identical.
+    4. ``route="auto"`` and ``route="replica"`` on 1000 x 100 on the
+       card equal the device route.
+
+    Returns the scatter's inputs of the first round (the ingest) and
+    the scatter's launches."""
+    from crdt_tpu_torch.core.ids import StateVector
+    from crdt_tpu_torch.models.incremental import IncrementalReplay
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+
+    label = "incremental_1000x1600"
+    scale = blobs_of["scale_1000x1600"]
+    tracer = set_tracer(Tracer(enabled=True))
+    seen: dict = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    d0 = packed_mod.device_dispatch_count
+    with capture_kernel_inputs(seen, (packed_mod, "stream_scatter")):
+        run = steady_rounds(traces, scale, 1000 * 1600, 1000,
+                            (1000, 16000, 64000), 4000, "cuda",
+                            sync_probe=lambda f: sync_warnings(torch, f))
+        warm = IncrementalReplay(capacity=run["cap"], device="cuda")
+        t0 = time.perf_counter()
+        warm.apply(scale)
+        ingest_warm_s = time.perf_counter() - t0
+        del warm
+    device_rounds = run["device_rounds"] + 1
+    counts = kernels.launch_counts()
+    dispatches = packed_mod.device_dispatch_count - d0
+    set_tracer(Tracer(enabled=False))
+    guard = {k: v for k, v in tracer.report()["counters"].items()
+             if k.startswith("device.")}
+    inc = run["inc"]
+    log(f"{label}: capacity {run['cap']}; ingest_s cold "
+        f"{run['ingest_s']:.3f}, warm {ingest_warm_s:.3f}; rounds "
+        f"{json.dumps(run['table'])}; crossover {run['crossover']}")
+    log(f"{label}: spans (s) of the ingest and of the rounds after it "
+        f"{json.dumps(run['spans'])}")
+    log(f"{label}: {dispatches} device rounds ({device_rounds} forced); "
+        f"launches {counts}; guard counters {json.dumps(guard)}")
+    log(f"{label}: calibration_info on the card "
+        f"{json.dumps(IncrementalReplay.calibration_info('cuda'))}")
+    log(f"{label}: host syncs of one forced 1000-op device round (sync "
+        f"debug mode), by thread and line: {json.dumps(run['syncs'])}")
+    want = {name: 0 for name in counts}
+    want.update(dict.fromkeys(ROUTE_KERNELS["incremental"], device_rounds))
+    if dispatches != device_rounds or counts != want:
+        raise AssertionError(
+            f"{label}: {dispatches} device rounds and launches {counts} "
+            f"for {device_rounds} rounds forced to the device")
+    if len(seen.get("stream_scatter", ())) != device_rounds:
+        raise AssertionError(f"{label}: scatter inputs not captured per round")
+    if guard.get("device.dispatch_errors", 0) or guard.get(
+            "device.fallback", 0):
+        raise AssertionError(f"{label}: the failure ladder ran: {guard}")
+    for args in seen["stream_scatter"]:
+        hold_kernel("stream_scatter", *args)
+    shapes = [[int(a.shape[0]), n] for a, n in seen["stream_scatter"]]
+    log(f"{label}: stream_scatter == plain on every round's inputs; "
+        f"(B, n_out) a round {json.dumps(shapes)}")
+
+    # ---- 2. against the cold replay of the union
+    t0 = time.perf_counter()
+    cache = json.dumps(inc.cache, sort_keys=True)
+    cache_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = rp.replay_trace(run["all_blobs"], device="cuda")
+    cold_s = time.perf_counter() - t0
+    if cache != json.dumps(cold.cache, sort_keys=True):
+        raise AssertionError(f"{label}: cache != cold device route")
+    t0 = time.perf_counter()
+    snap = inc.encode_state_as_update()
+    encode_s = time.perf_counter() - t0
+    again = rp.replay_trace([snap], device="cuda")
+    if json.dumps(again.cache, sort_keys=True) != cache:
+        raise AssertionError(f"{label}: full-state encode replays differently")
+    best = min(min(r["device_round_s"], r.get("host_round_s", float("inf")))
+               for r in run["table"].values())
+    log(f"{label}: cache == cold device route on the union "
+        f"({cold.n_ops} ops; cold replay {cold_s:.3f} s against the best "
+        f"round {best:.4f} s); cache read {cache_s:.3f} s; the full-state "
+        f"encode ({len(snap)} bytes, {encode_s:.3f} s) replays to the same "
+        "cache")
+
+    # ---- 3. the same procedure at 1000 x 100, card against CPU
+    small = blobs_of["trace_1000x100"]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        set_tracer(Tracer(enabled=True))  # counts the rounds' h2d bytes
+        r = steady_rounds(traces, small, 1000 * 100, 1000, (250, 1000),
+                          1000, device)
+        set_tracer(Tracer(enabled=False))
+        outs[device] = r
+        log(f"trace_1000x100 [incremental, {device}]: ingest_s "
+            f"{r['ingest_s']:.3f}; rounds {json.dumps(r['table'])}")
+    a, b = outs["cuda"]["inc"], outs["cpu"]["inc"]
+    mid = StateVector(dict(outs["cpu"]["svs"][1].clocks))
+    checks = {
+        "cache": (json.dumps(a.cache, sort_keys=True),
+                  json.dumps(b.cache, sort_keys=True)),
+        "state_vector": (a.state_vector().clocks, b.state_vector().clocks),
+        "full_encode": (a.encode_state_as_update(),
+                        b.encode_state_as_update()),
+        "diff_encode": (a.encode_state_as_update(mid),
+                        b.encode_state_as_update(mid)),
+    }
+    for name, (x, y) in checks.items():
+        if x != y:
+            raise AssertionError(f"trace_1000x100 [incremental]: {name} "
+                                 "differs, card vs CPU")
+    log("trace_1000x100 [incremental]: card == CPU (cache, state vector, "
+        "full-state and diff encodes)")
+
+    # ---- 4. the auto and replica routes
+    for route in ("auto", "replica"):
+        res = rp.replay_trace(small, route=route, device="cuda")
+        same("trace_1000x100", res, device_results["trace_1000x100"],
+             f"{route} route vs device route, card")
+        log(f"trace_1000x100 [{route}]: path {res.path}; == device route")
+    return seen["stream_scatter"][:1], counts["stream_scatter"]
+
+
+def sync_warnings(torch, run) -> dict:
+    """Run ``run()`` on the card under
     ``torch.cuda.set_sync_debug_mode("warn")``: every host sync it
-    reports, counted by the thread and the line that made it (the
-    stager thread's converge should make none)."""
+    reports, counted by the thread and the line that made it."""
     import threading
     import warnings
 
@@ -594,9 +891,17 @@ def sync_report(torch, streaming, blobs) -> None:
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            streaming.stream_replay(blobs, device="cuda")
+            run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+def sync_report(torch, streaming, blobs) -> None:
+    """One more card stream replay under the sync debug mode (the
+    stager thread's converge should make no host sync)."""
+    found = sync_warnings(
+        torch, lambda: streaming.stream_replay(blobs, device="cuda"))
     stager = sum(n for k, n in found.items()
                  if k.startswith("stream-stager"))
     log("host syncs of one 1000x1600 stream replay (sync debug mode), "

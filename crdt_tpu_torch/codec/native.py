@@ -1,10 +1,11 @@
 """Native v1 codec binding — decode-to-columns / encode-from-columns.
 
-The port's copy of ``crdt_tpu.codec.native``. It builds the repo's
-C++ source ``native/codec/v1codec.cc`` as a CPython extension on first
-use (g++, Python + numpy headers) into the port's own build directory,
-``crdt_tpu_torch/build/codec/``, and exposes the entry points the cold
-replay needs:
+The port's copy of ``crdt_tpu.codec.native``. It builds the port's own
+C++ source ``crdt_tpu_torch/csrc/v1codec.cc`` (module ``_v1codec_torch``,
+whose ``undefined`` sentinel is :data:`crdt_tpu_torch.codec.lib0.UNDEFINED`)
+as a CPython extension on first use (g++, Python + numpy headers) into
+the port's own build directory, ``crdt_tpu_torch/build/codec/``, and
+exposes the entry points the replays need:
 
 - :func:`decode_updates_columns` — one C pass over a batch of v1 blobs
   producing interned numpy columns + a contents list.
@@ -36,10 +37,11 @@ from crdt_tpu_torch.core.ids import DeleteSet
 from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_GC
 
-_REPO_ROOT = Path(__file__).resolve().parent.parent.parent
-_SRC = _REPO_ROOT / "native" / "codec" / "v1codec.cc"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "codec"
-_SO = _BUILD_DIR / "_v1codec.so"
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "v1codec.cc"
+_BUILD_DIR = _PKG / "build" / "codec"
+_MODULE = "_v1codec_torch"
+_SO = _BUILD_DIR / f"{_MODULE}.so"
 
 _lock = threading.Lock()
 _mod = None
@@ -80,7 +82,7 @@ def _load():
                 _build()
             import importlib.util
 
-            spec = importlib.util.spec_from_file_location("_v1codec", _SO)
+            spec = importlib.util.spec_from_file_location(_MODULE, _SO)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
         except Exception as e:  # remember: don't retry a broken toolchain

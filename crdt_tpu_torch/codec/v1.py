@@ -541,3 +541,37 @@ def decode_update(data: bytes) -> Tuple[List[ItemRecord], DeleteSet]:
     if d.has_content():
         raise ValueError("trailing bytes after v1 update")
     return records, ds
+
+
+# ---------------------------------------------------------------------------
+# engine glue — the Y.* surface the reference calls
+# ---------------------------------------------------------------------------
+
+def encode_state_as_update(engine, sv: Optional[StateVector] = None) -> bytes:
+    """``Y.encodeStateAsUpdate(doc[, sv])`` (crdt.js:56,288,347): items
+    above the target state vector plus the full delete set, for a
+    :class:`~crdt_tpu_torch.core.engine.Engine`.
+
+    Full-state encodes (``sv`` None or empty — compaction snapshots,
+    and the answer to a FRESH requester, whose decoded state vector is
+    empty) go through the native column encoder in one C pass over the
+    store's columns; real diffs stay on the O(deficit) record path."""
+    if sv is None or not sv.clocks:
+        from crdt_tpu_torch.codec import native
+
+        if native.available():
+            ds = engine.delete_set()
+            return native.encode_from_columns(
+                engine.to_decoded_columns(ds), ds
+            )
+    return encode_update(engine.records_since(sv), engine.delete_set())
+
+
+def apply_update(engine, data: bytes) -> None:
+    """``Y.applyUpdate(doc, update)`` (crdt.js:294)."""
+    records, ds = decode_update(data)
+    engine.apply_records(records, ds)
+
+
+def encode_state_vector_of(engine) -> bytes:
+    return encode_state_vector(engine.state_vector())

@@ -19,8 +19,12 @@ sync backlog) end to end:
 blobs as ONE replica-fleet gossip + merge round instead
 (:mod:`crdt_tpu_torch.models.fleet`), with steps 4 and 5 shared;
 ``route="stream"`` runs the same computation as a chunked,
-double-buffered pipeline (:mod:`crdt_tpu_torch.models.streaming`); and
-``route="host"`` runs the device route's converge on the CPU.
+double-buffered pipeline (:mod:`crdt_tpu_torch.models.streaming`);
+``route="host"`` runs the device route's converge on the CPU;
+``route="replica"`` ingests the union through the live replica's engine
+(:mod:`crdt_tpu_torch.models.incremental`) on its host path; and
+``route="auto"`` picks the host or the device route by the live
+replica's crossover.
 
 Shapes the packed kernels cannot express take the scalar host
 machinery (:mod:`crdt_tpu_torch.ops.yata`, through
@@ -457,13 +461,6 @@ def compact(dec: Dict, ds: DeleteSet) -> bytes:
         return native.encode_from_columns_any(dec, ds)
 
 
-# the reference's other routes and the ROADMAP.md item that ports them
-_UNPORTED_ROUTES = {
-    "auto": "queue A item 5 (incremental engine)",
-    "replica": "queue A item 5 (incremental engine)",
-}
-
-
 def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
                  device="cuda") -> ReplayResult:
     """One-shot: blobs in, converged cache + compacted snapshot out,
@@ -483,15 +480,16 @@ def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
     - ``"host"``: the device route's converge with wide staging, run on
       the CPU whatever ``device`` says (naming the route is how the
       caller asks for the host); it launches nothing on the card and
-      its ``path`` is ``"host"``.
-
-    The reference's ``"auto"`` and ``"replica"`` routes raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
-    if route in _UNPORTED_ROUTES:
-        raise NotImplementedError(
-            f"route={route!r} is not ported yet "
-            f"(ROADMAP.md {_UNPORTED_ROUTES[route]})"
-        )
+      its ``path`` is ``"host"``. A union the packed stager cannot
+      express goes to the live replica's engine instead (``path``
+      ``"replica"``);
+    - ``"auto"``: the live replica's host/device crossover
+      (:meth:`IncrementalReplay.crossover_use_host` on ``device``):
+      below it the ``"host"`` route, above it the ``"device"`` route;
+    - ``"replica"``: ingest through
+      :class:`crdt_tpu_torch.models.incremental.IncrementalReplay`
+      pinned to its host path — the code a live replica runs on this
+      backlog, with zero device work."""
     if route == "fleet":
         from crdt_tpu_torch.models.fleet import fleet_replay
 
@@ -500,34 +498,55 @@ def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
         from crdt_tpu_torch.models.streaming import stream_replay
 
         return stream_replay(blobs, device=device)
-    if route == "host":
-        return _replay_host(blobs)
-    if route != "device":
+    if route not in ("device", "host", "auto", "replica"):
         raise ValueError(f"unknown route {route!r}")
+    if route == "host":
+        return _replay_host(decode(blobs))
     dev = resolve_device(device)
     dec = decode(blobs)
+    if route == "replica":
+        return _replay_replica(dec, dev)
+    if route == "auto":
+        from crdt_tpu_torch.models.incremental import IncrementalReplay
+
+        # the live replica's exact rule (one shared implementation:
+        # static floor first, the probe of this device beyond it)
+        route = ("host" if IncrementalReplay.crossover_use_host(
+            len(dec["client"]), dev) else "device")
+    if route == "host":
+        return _replay_host(dec)
     cols, ds = stage(dec)
     return _finish(dec, ds, converge(cols, device=dev), dev, "device")
 
 
-def _replay_host(blobs: Sequence[bytes]) -> ReplayResult:
+def _replay_host(dec: Dict) -> ReplayResult:
     """``route="host"``: the packed converge on the CPU. Wide staging:
     nothing crosses a link, so the narrow encode and its widening
-    prelude would be pure overhead."""
+    prelude would be pure overhead. A plan the stager cannot express
+    goes to the replica engine."""
     cpu = resolve_device("cpu")
-    dec = decode(blobs)
     cols, ds = stage(dec)
     plan = staging.stage(cols, wide=True)
     if plan is None:
-        # the reference hands an inexpressible plan to its replica
-        # engine, which a later slice ports
-        raise NotImplementedError(
-            "route='host' on a union past the packed stager's bounds "
-            "needs the replica engine, not ported yet (ROADMAP.md "
-            f"{_UNPORTED_ROUTES['replica']})"
-        )
+        return _replay_replica(dec, cpu)
     handle = ("packed", packed.converge(plan, device=cpu))
     return _finish(dec, ds, handle, cpu, "host")
+
+
+def _replay_replica(dec: Dict, device) -> ReplayResult:
+    """``route="replica"``: the decoded union through a live replica's
+    engine pinned to its host path. Minimal capacity: the resident
+    device matrix is never allocated on this route."""
+    from crdt_tpu_torch.models.incremental import IncrementalReplay
+
+    inc = IncrementalReplay(capacity=1 << 10, device_min_rows=1 << 62,
+                            device=device)
+    inc.apply_decoded(dec)  # decoded once, never twice
+    ds = native.ds_from_triples(dec["ds"])
+    return ReplayResult(
+        cache=dict(inc.cache), snapshot=compact(dec, ds),
+        n_ops=len(dec["client"]), path="replica",
+    )
 
 
 def _finish(dec: Dict, ds: DeleteSet, handle, device,

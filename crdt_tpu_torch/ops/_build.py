@@ -7,8 +7,8 @@ in ``.gitignore``) and loaded with ``ctypes``. The library's file name
 carries a hash of its source and of every header under ``csrc/``, so
 an edited kernel or header never loads a stale build. :func:`build_all`
 starts one ``nvcc`` per source, all at once, and waits for them
-together. A failed build or load raises; nothing falls back to the
-plain version.
+together. A failed build, load or launch raises :class:`KernelError`;
+nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -53,6 +53,13 @@ KERNELS: Dict[str, tuple] = {
 }
 
 
+class KernelError(Exception):
+    """A hand-written kernel failed to build, load or launch. Not a
+    ``RuntimeError`` on purpose: the guarded dispatch ladder
+    (:mod:`crdt_tpu_torch.guard.device`) must let it through rather
+    than route the work quietly to the host."""
+
+
 class Built(NamedTuple):
     path: Path  # the shared library
     log: str    # nvcc's output (ptxas resource usage with -Xptxas -v)
@@ -75,7 +82,7 @@ def nvcc_path() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
         "CUDA kernels cannot be built"
     )
@@ -91,7 +98,7 @@ def _target(name: str) -> Path:
 def build_all(names=None) -> Dict[str, Built]:
     """Compile the named kernels (default: all), one ``nvcc`` process
     per source, started together. Reuses a library already built from
-    the same source. Raises RuntimeError naming every failed build."""
+    the same source. Raises KernelError naming every failed build."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -121,7 +128,7 @@ def build_all(names=None) -> Dict[str, Built]:
         os.replace(tmp, out)
         done[name] = Built(out, log)
     if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(errors))
     return done
 
 
@@ -133,7 +140,10 @@ def library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         built = build_all([name])[name]
-        lib = ctypes.CDLL(str(built.path))
+        try:
+            lib = ctypes.CDLL(str(built.path))
+        except OSError as e:
+            raise KernelError(f"cannot load {built.path}: {e}") from e
         for fn, (restype, argtypes) in KERNELS[name][1].items():
             f = getattr(lib, fn)
             f.restype = restype
@@ -145,4 +155,4 @@ def library(name: str) -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     """Raise when a launch entry point reports a CUDA error."""
     if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code}")
+        raise KernelError(f"{what}: CUDA error {code}")

@@ -22,6 +22,7 @@ The port's counterpart of ``crdt_tpu.ops.device``. Conventions:
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -58,6 +59,36 @@ def wide_staging_forced() -> bool:
     """Debug knob: CRDT_TPU_WIDE_STAGING=1 forces every staged upload
     to the wide int32 layout, bypassing the narrow-section encodings."""
     return os.environ.get(_WIDE_ENV, "") not in ("", "0")
+
+
+# ---------------------------------------------------------------------------
+# device fault hook: the injection seam of the guarded-dispatch ladder
+# (crdt_tpu_torch.guard.device). The hook fires before every guarded
+# dispatch attempt and may raise RuntimeError to simulate a device fault
+# (an OOM, a lost card), so tests drive the retry -> split -> host
+# ladder without a failing device.
+# ---------------------------------------------------------------------------
+
+_DEVICE_FAULT_HOOK = None
+# the swap-and-return-old contract is only right if the
+# read-modify-write is atomic (the streaming decode pool reaches this
+# module from other threads)
+_HOOK_LOCK = threading.Lock()
+
+
+def set_device_fault_hook(fn):
+    """Install ``fn(stage, attempt)`` as the guarded-dispatch fault hook
+    (None uninstalls). Returns the previous hook so callers can restore
+    it."""
+    global _DEVICE_FAULT_HOOK
+    with _HOOK_LOCK:
+        old = _DEVICE_FAULT_HOOK
+        _DEVICE_FAULT_HOOK = fn
+        return old
+
+
+def device_fault_hook():
+    return _DEVICE_FAULT_HOOK
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,15 @@ interactions:
 There is no sort and no host sync inside step 2: every loop runs a
 round count fixed on the host at staging (``rank_rounds``,
 ``map_rounds``).
+
+The second half is the live replica's device round
+(:class:`crdt_tpu_torch.models.incremental.IncrementalReplay`): the
+packed delta of one round is spliced IN PLACE into the replica's
+resident ``[7, cap]`` int64 matrix, the rows of the touched segments are
+selected, and only they re-converge (:func:`_splice_select_converge` →
+:func:`_converge_core` → :func:`_rank_compact`, which runs the
+``stream_scatter`` kernel). JAX donated the matrix to the dispatch; the
+port writes into it, so a round's one upload is the delta block.
 """
 
 from __future__ import annotations
@@ -32,18 +41,26 @@ from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops.device import (
     NULLI,
     bucket_grid,
+    dense_ranks_sorted,
     dfs_ranks,
+    lexsort,
+    pack_id,
     pointer_double,
     record_staged_widths,
     resolve_device,
+    run_edge_lookup,
+    scatter_perm,
+    searchsorted_ids,
     xfer_fetch,
     xfer_put,
 )
 from crdt_tpu_torch.ops.kernels import seg_argmax_scan, stream_scatter
+from crdt_tpu_torch.ops.lww import map_winners
 from crdt_tpu_torch.ops.staging import (
     _SECTION_GROUPS,
     PackedPlan,
     _section_sizes,
+    segkey_of,
 )
 
 _I32 = torch.int32
@@ -300,3 +317,269 @@ def plan_from_reference(fields: dict) -> PackedPlan:
         vals[k] = tuple(vals[k])
     vals["dev"] = ()
     return PackedPlan(**vals)
+
+
+# ---------------------------------------------------------------------------
+# the incremental device round (the live replica's steady state)
+# ---------------------------------------------------------------------------
+
+_I64_MAX = (1 << 63) - 1
+
+
+def _rank_compact(parent, c_client, pos_desc, c_seg, c_ok, row_of, *,
+                  num_segments: int, rank_rounds: Optional[int],
+                  client_bits: int, qbits: int, doc_off) -> tuple:
+    """Sibling sort + tree tables + climb + Wyllie ranking + document
+    order over the COMPACT sequence space (B rows + S virtual roots).
+    ``row_of[i]`` is the caller-space row of compact row i, used only to
+    label the output stream.
+
+    Sibling order is (parent, client asc, clock DESC); ``pos_desc`` must
+    be descending in clock within one (parent, client) group. ``doc_off``
+    [S] is each segment's first compact position: document order is the
+    ``stream_scatter`` kernel's out[doc_off[seg] + rank] = row. Every
+    gather index is in range by construction or clamped where the
+    reference's gather clamps."""
+    B = parent.shape[0]
+    S = num_segments
+    mB = B + S
+    dev = parent.device
+    pbits = int(mB).bit_length()
+    if pbits + client_bits + qbits <= 63:
+        sibkey = ((parent.to(torch.int64) << (client_bits + qbits))
+                  | (c_client.to(torch.int64) << qbits)
+                  | pos_desc.to(torch.int64))
+        sord2 = torch.argsort(sibkey, stable=True)
+    else:
+        sord2 = lexsort([
+            parent.to(torch.int64),
+            (c_client.to(torch.int64) << qbits) | pos_desc.to(torch.int64),
+        ])
+    p_s = parent[sord2]
+    same_group = torch.cat([p_s[1:] == p_s[:-1],
+                            torch.zeros(1, dtype=torch.bool, device=dev)])
+    nxt_sorted = torch.where(same_group, torch.roll(sord2, -1),
+                             NULLI).to(_I32)
+    next_sib = scatter_perm(sord2, nxt_sorted)
+    first_pos, _ = run_edge_lookup(p_s, mB, side="left")
+    first_child = torch.where(
+        first_pos >= 0, sord2[first_pos.long().clamp(0, B - 1)], NULLI
+    ).to(_I32)
+
+    dist_to_end = dfs_ranks(parent, next_sib, first_child, c_ok, S,
+                            rank_rounds=rank_rounds)
+    # c_seg < S on every compact row (at most S touched segments)
+    root_dist = dist_to_end[B + c_seg.long().clamp(min=0)]
+    c_rank = torch.where(c_ok, root_dist - dist_to_end[:B] - 1, NULLI)
+
+    ranked = c_ok & (c_rank >= 0)
+    pos = torch.where(
+        ranked,
+        doc_off[c_seg.long().clamp(0, S - 1)].to(_I32) + c_rank.to(_I32),
+        NULLI,
+    )
+    perm = stream_scatter(pos.to(_I32), B)
+    okp = perm >= 0
+    permc = perm.long().clamp(0, B - 1)
+    stream_seg = torch.where(okp, c_seg[permc], NULLI).to(_I32)
+    stream_row = torch.where(okp, row_of[permc], NULLI).to(_I32)
+    return stream_seg, stream_row
+
+
+def _converge_core(client, clock, pref, kid, oc, ock, valid, *,
+                   num_segments: int, seq_bucket: int,
+                   rank_rounds: Optional[int] = None,
+                   map_rounds: Optional[int] = None) -> torch.Tensor:
+    """The GENERAL packed convergence: its own id sort, dedup, origin
+    resolution and segment numbering on the device — the engine of the
+    incremental touched-segment path, where rows live resident and no
+    host staging precomputes the layout. Returns one int32 tensor
+
+      [ win_rows[S] | stream_seg[B] | stream_row[B] ]
+
+    whose row indices refer to the CALLER's row space."""
+    n = client.shape[0]
+    S = num_segments
+
+    # shared id-sort + dedup + origin resolution
+    ikey = torch.where(valid, pack_id(client, clock), 1 << 62)
+    order = torch.argsort(ikey, stable=True)
+    ikey = ikey[order]
+    client = client[order]
+    clock = clock[order]
+    pref = pref[order]
+    kid = kid[order]
+    oc = oc[order]
+    ock = ock[order]
+    valid = valid[order]
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=ikey.device),
+                     ikey[1:] == ikey[:-1]])
+    uniq_valid = valid & ~dup
+    origin_idx = searchsorted_ids(ikey, pack_id(oc, ock))
+
+    is_map = uniq_valid & (kid >= 0)
+    is_seq = uniq_valid & (kid < 0)
+
+    # one composite segment key covers maps AND sequences; sequence keys
+    # sort below map keys (bit 62) and invalid rows (max)
+    segkey = torch.where(uniq_valid, segkey_of(pref, kid.to(torch.int64)),
+                         _I64_MAX)
+    sorder = torch.argsort(segkey, stable=True)
+    seg_sorted = dense_ranks_sorted(segkey[sorder])
+    seg = scatter_perm(sorder, seg_sorted)
+    seg_map = torch.where(is_map, seg, NULLI)
+
+    winners = map_winners(
+        seg_map, client, clock, origin_idx, is_map, S,
+        rows_id_ranked=True, chain_rounds=map_rounds, client_bits=23,
+    )
+    win_rows = torch.where(
+        winners >= 0, order[winners.long().clamp(0, n - 1)], NULLI
+    ).to(_I32)
+
+    # ---- sequence ranking in COMPACT space: sorder's prefix holds
+    # exactly the sequence rows, and the bucket B >= n_seq covers them
+    B = seq_bucket
+    mB = B + S
+    sub = sorder[:B]
+    c_ok = is_seq[sub]
+    c_seg = torch.where(c_ok, seg[sub], NULLI)
+    # full-space row -> sorder position (compact index for seq rows)
+    inv_sorder = torch.argsort(sorder, stable=True).to(_I32)
+    o = origin_idx[sub].long()
+    o_ok = c_ok & (o >= 0)
+    o_c = o.clamp(0, n - 1)
+    o_seg = torch.where(o_ok, seg[o_c], NULLI)
+    same_seg = o_ok & (o_seg == c_seg)
+    c_parent = torch.where(same_seg, inv_sorder[o_c], NULLI).to(_I32)
+    parent = torch.where(c_ok & (c_parent >= 0), c_parent,
+                         B + c_seg.clamp(min=0))
+    parent = torch.where(c_ok, parent, mB).to(_I32)
+
+    # sibling order by (parent, client asc, clock DESC): rows are in id
+    # order here, so within one client the descending row index is the
+    # descending clock
+    c_client = client[sub]
+    pos_desc = (n - 1) - sub
+    # a segment's first sorted position IS its document-order offset
+    doc_off, _ = run_edge_lookup(seg_sorted, S, side="left")
+    stream_seg, stream_row = _rank_compact(
+        parent, c_client, pos_desc, c_seg, c_ok, order[sub],
+        num_segments=S, rank_rounds=rank_rounds, client_bits=23,
+        qbits=int(max(n - 1, 1)).bit_length(), doc_off=doc_off,
+    )
+    return torch.cat([win_rows, stream_seg, stream_row])
+
+
+def stage_resident_delta(client, clock, pref, kid, oc, ock,
+                         dev_segs, kpad: int) -> np.ndarray:
+    """Stage one incremental round's DELTA against a resident base: the
+    ``[8, kpad]`` int64 block :func:`_splice_select_converge` consumes.
+    Rows 0-6 are the packed delta columns (dense clients, clocks, parent
+    refs; ``valid`` = resolvable parent), row 7 the touched-segment keys
+    (ascending segkeys, int64-max padded). A warm round ships THIS block
+    only; the doc's history is already resident."""
+    k = len(client)
+    delta = np.zeros((8, kpad), np.int64)
+    delta[3:6, :] = -1
+    delta[7, :] = np.iinfo(np.int64).max
+    delta[7, : len(dev_segs)] = dev_segs
+    pref = np.asarray(pref, np.int64)
+    delta[0, :k] = client
+    delta[1, :k] = clock
+    delta[2, :k] = np.maximum(pref, 0)
+    delta[3, :k] = kid
+    delta[4, :k] = oc
+    delta[5, :k] = ock
+    delta[6, :k] = pref >= 0
+    return delta
+
+
+def _splice_select_converge(mat: torch.Tensor, delta8: torch.Tensor,
+                            n_off: int, *, num_segments: int,
+                            sel_bucket: int, seq_bucket: int,
+                            rank_rounds: Optional[int] = None,
+                            map_rounds: Optional[int] = None) -> torch.Tensor:
+    """One incremental round on the device, with no host sync: splices
+    the delta (``delta8`` rows 0-6) into the resident matrix at column
+    ``n_off`` IN PLACE, selects the rows of the touched segments
+    (``delta8`` row 7: ascending segkeys, int64-max padding) and
+    re-converges only that compact subset. Returns
+
+      [ out[S + 2B] | sel_rows[sel_bucket] ] int32
+
+    where out's row indices are LOCAL to sel_rows; callers map back with
+    sel_rows (resident row ids, -1 padding). The caller grows ``mat``
+    first so that the delta fits."""
+    kpad = delta8.shape[1]
+    if n_off + kpad > mat.shape[1]:
+        raise ValueError(
+            f"delta of {kpad} columns at {n_off} overflows a resident "
+            f"matrix of {mat.shape[1]}"
+        )
+    touched_sorted = delta8[7]
+    mat[:, n_off:n_off + kpad] = delta8[:7]
+    client = mat[0].to(_I32)
+    clock = mat[1]
+    pref = mat[2]
+    kid = mat[3].to(_I32)
+    oc = mat[4].to(_I32)
+    ock = mat[5]
+    valid = mat[6] != 0
+
+    segkey = segkey_of(pref, kid.to(torch.int64))
+    pos = torch.searchsorted(touched_sorted, segkey)
+    pos_c = pos.clamp(0, touched_sorted.shape[0] - 1)
+    sel = valid & (touched_sorted[pos_c] == segkey)
+    skey = torch.where(sel, segkey, _I64_MAX)
+    sel_rows = torch.argsort(skey, stable=True)[:sel_bucket]
+    sub_valid = sel[sel_rows]
+    out = _converge_core(
+        client[sel_rows], clock[sel_rows], pref[sel_rows], kid[sel_rows],
+        oc[sel_rows], ock[sel_rows], sub_valid,
+        num_segments=num_segments, seq_bucket=seq_bucket,
+        rank_rounds=rank_rounds, map_rounds=map_rounds,
+    )
+    return torch.cat([out, torch.where(sub_valid, sel_rows, NULLI).to(_I32)])
+
+
+def new_resident_mat(cap: int, device) -> torch.Tensor:
+    """An empty ``[7, cap]`` resident matrix: key-id and origin columns
+    null (-1), the rest 0."""
+    mat = torch.zeros((7, cap), dtype=torch.int64, device=device)
+    mat[3:6] = -1
+    return mat
+
+
+def _grow_mat(mat: torch.Tensor, new_cap: int) -> torch.Tensor:
+    """Capacity growth for the resident matrix: a new tensor on the same
+    device with the old columns copied in."""
+    big = new_resident_mat(new_cap, mat.device)
+    big[:, :mat.shape[1]] = mat
+    return big
+
+
+def _relabel_mat(mat: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Rewrite dense client ids through an old->new permutation after a
+    mid-table client insertion (order-preserving interning), in place:
+    rows 0 (client) and 4 (origin client). Both new rows are computed
+    before either is written."""
+    perm = perm.to(device=mat.device, dtype=torch.int64)
+    top = perm.shape[0] - 1
+    cl = perm[mat[0].clamp(0, top)]
+    oc = mat[4]
+    oc = torch.where(oc >= 0, perm[oc.clamp(0, top)], oc)
+    mat[0] = cl
+    mat[4] = oc
+    return mat
+
+
+# running count of warm device-route converge dispatches (one per
+# `_splice_select_converge` round): a plain module int, the same
+# single-process pattern as the kernel wrappers' launch counts
+device_dispatch_count = 0
+
+
+def count_device_dispatch(n: int = 1) -> None:
+    global device_dispatch_count
+    device_dispatch_count += n

@@ -19,6 +19,7 @@ import os
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops.device import (
@@ -34,6 +35,7 @@ from crdt_tpu_torch.ops.yata import _simulate_group
 # (is_map:1 | pref:25 bits | kid:21 bits) must fit non-negative int64
 _PREF_BITS = 25
 _KID_BITS = 21
+_MAP_FLAG_BIT = 62           # the is_map bit: map segments sort last
 
 _SEQ_FLAG = 1 << 30          # bit in the seg column marking sequence rows
 
@@ -993,7 +995,7 @@ def _stage(cols: Dict[str, np.ndarray],
         return None
     seg = np.full(n, -1, np.int64)
     seg[uniq_valid] = seg_inv
-    map_seg = uniq_sk >= (1 << 62)
+    map_seg = uniq_sk >= (1 << _MAP_FLAG_BIT)
     # per-segment populations bound the device doubling rounds: a DFS
     # path cannot exceed its segment's row count + 1 (virtual root),
     # a map key chain cannot be deeper than its segment's row count
@@ -1288,10 +1290,21 @@ def _section_sizes(num_segments: int, seq_bucket: int,
 
 
 def segkey_of(pref, kid):
-    """The composite segment key, shared by staging, the fused kernel,
-    and the incremental host bookkeeping. Works on numpy or jnp
-    (dtype-explicit: the map-flag bit 62 must not fall into a narrow
-    weak-typed promotion)."""
-    is_map = (kid >= 0).astype(np.int64)
+    """The composite segment key, shared by staging, the incremental
+    device round and the incremental host bookkeeping. Works on int64
+    numpy arrays or torch tensors (dtype-explicit: the map-flag bit 62
+    needs an int64 flag)."""
+    if isinstance(kid, torch.Tensor):
+        is_map = (kid >= 0).to(torch.int64)
+    else:
+        is_map = (kid >= 0).astype(np.int64)
     base = (pref << _KID_BITS) | (is_map * kid)
-    return base | (is_map << np.int64(62))
+    return base | (is_map << _MAP_FLAG_BIT)
+
+
+def segkey_int(pref: int, kid: int) -> int:
+    """Scalar-Python :func:`segkey_of` for per-op hot paths: no numpy
+    temporaries, same key."""
+    if kid >= 0:
+        return (pref << _KID_BITS) | kid | (1 << _MAP_FLAG_BIT)
+    return pref << _KID_BITS

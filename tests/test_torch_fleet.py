@@ -243,13 +243,34 @@ class TestOutsideTheSlice:
             fleet.fleet_replay(traces.build_trace(3, 4), device="cpu",
                                shard=shard)
 
-    @pytest.mark.parametrize("route,item", [
-        ("auto", "item 5"), ("replica", "item 5"),
+    @pytest.mark.parametrize("route", [
+        pytest.param("auto", id="auto-item 5"),
+        pytest.param("replica", id="replica-item 5"),
     ])
-    def test_unported_routes_raise(self, route, item):
-        with pytest.raises(NotImplementedError, match=item):
-            replay_trace(traces.build_trace(3, 4), route=route,
-                         device="cpu")
+    def test_unported_routes_raise(self, route):
+        # the live replica's routes (ROADMAP.md queue A item 5): the
+        # reference's cache and snapshot on the same trace. The name and
+        # ids are those these routes had while they raised, kept so the
+        # test's history stays one line.
+        for blobs in (traces.build_trace(3, 4),
+                      traces.build_conflict_trace(8, 24)):
+            got = replay_trace(blobs, route=route, device="cpu")
+            want = ref_rp.replay_trace(blobs, route=route)
+            _assert_same_replay(got, want)
+            assert got.path == want.path
+
+    def test_host_route_on_an_inexpressible_plan(self, monkeypatch):
+        # a plan past the stager's bounds (2^25 parents, 2^21 keys: too
+        # large to build here) goes to the replica engine, as the
+        # reference's host route does
+        from crdt_tpu_torch.models import replay as rp
+
+        monkeypatch.setattr(rp.staging, "stage", lambda *a, **kw: None)
+        blobs = traces.build_conflict_trace(8, 24)
+        got = replay_trace(blobs, route="host")
+        want = ref_rp.replay_trace(blobs, route="replica")
+        _assert_same_replay(got, want)
+        assert got.path == "replica"
 
     def test_default_is_the_card_and_raises_without_one(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

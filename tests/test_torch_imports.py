@@ -44,7 +44,8 @@ def test_no_reference_or_jax_import(rel):
 
 def test_imports_and_replays_with_jax_blocked():
     # a fresh interpreter in which `import jax` and `import crdt_tpu`
-    # fail: the whole port must import and run a CPU replay
+    # fail: the whole port must import, build and load its own native
+    # codec, and run a CPU replay
     code = (
         "import sys\n"
         "for m in list(sys.modules):\n"
@@ -57,9 +58,14 @@ def test_imports_and_replays_with_jax_blocked():
         "                                 'crdt_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "import chip_smoke\n"
+        "from crdt_tpu_torch.codec import native\n"
+        "assert native.available(), native._build_error\n"
         "from crdt_tpu_torch.models.traces import build_trace\n"
         "r = crdt_tpu_torch.replay_trace(build_trace(4, 6), device='cpu')\n"
         "assert r.n_ops == 24 and r.snapshot\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.split('.')[0] in ('jax', 'crdt_tpu')\n"
+        "            and sys.modules[m] is not None]\n"
         "print('ok')\n"
     )
     out = subprocess.run(

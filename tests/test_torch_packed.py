@@ -215,3 +215,142 @@ class TestConverge:
         monkeypatch.setattr(staging, "EAGER_PUT_MIN_ROWS", 1)
         got = rp.converge(cols, device="cpu")[1]
         _assert_same_result(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the incremental device round: splice + select + _converge_core
+# ---------------------------------------------------------------------------
+
+
+def _resident_rows(blobs):
+    """A decoded union as the live replica's resident columns: dense
+    client ids, root parent refs, key ids, dense origin clients (-1
+    none) — what ``IncrementalReplay._dispatch_round`` stages."""
+    dec = ref_rp.decode(blobs)
+    clients = np.unique(np.concatenate([
+        dec["client"], dec["origin_client"][dec["origin_client"] >= 0]]))
+    oc = dec["origin_client"]
+    return dict(
+        client=np.searchsorted(clients, dec["client"]),
+        clock=dec["clock"].astype(np.int64),
+        pref=dec["parent_root"].astype(np.int64),
+        kid=dec["key_id"].astype(np.int64),
+        oc=np.where(oc >= 0, np.searchsorted(clients, np.maximum(oc, 0)),
+                    -1),
+        ock=dec["origin_clock"].astype(np.int64),
+    )
+
+
+def _delta_of(rows, lo, hi, kpad, extra_segs=()):
+    cols = {k: v[lo:hi] for k, v in rows.items()}
+    segs = staging.segkey_of(cols["pref"], cols["kid"])
+    touched = np.unique(np.concatenate([segs, np.asarray(extra_segs,
+                                                         np.int64)]))
+    args = (cols["client"], cols["clock"], cols["pref"], cols["kid"],
+            cols["oc"], cols["ock"], touched, kpad)
+    got = packed.stage_resident_delta(*args)
+    want = ref_packed.stage_resident_delta(*args)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    return got, touched
+
+
+class TestIncrementalRound:
+    @pytest.mark.parametrize("seed,map_frac", [(0, 0.6), (5, 0.2)])
+    def test_two_deltas_over_a_resident_base(self, seed, map_frac):
+        import jax.numpy as jnp
+
+        import bench
+        from crdt_tpu.compat import enable_x64
+
+        rows = _resident_rows(bench.build_trace(6, 24, seed=seed,
+                                                map_frac=map_frac))
+        n = len(rows["client"])
+        cuts = [0, n * 3 // 5, n * 4 // 5, n]
+        S, cap = 1 << 10, 1 << 12
+        got_mat = packed.new_resident_mat(cap, "cpu")
+        with enable_x64(True):
+            ref_mat = jnp.zeros((7, cap), jnp.int64).at[3:6, :].set(-1)
+        base_segs = staging.segkey_of(rows["pref"][:cuts[1]],
+                                      rows["kid"][:cuts[1]])
+        for step, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            # each later delta also re-converges one base-only segment
+            extra = base_segs[:1] if step else ()
+            delta, touched = _delta_of(rows, lo, hi, S, extra)
+            seg_all = staging.segkey_of(rows["pref"][:hi],
+                                        rows["kid"][:hi])
+            n_sel = int(np.isin(seg_all, touched).sum())
+            sel_bucket = min(8192 if n_sel <= 8192 else 65536, cap)
+            kw = dict(num_segments=S, sel_bucket=sel_bucket,
+                      seq_bucket=sel_bucket, rank_rounds=None,
+                      map_rounds=None)
+            got = packed._splice_select_converge(
+                got_mat, torch.from_numpy(delta), lo, **kw).numpy()
+            with enable_x64(True):
+                ref_mat, want = ref_packed._splice_select_converge(
+                    ref_mat, jnp.asarray(delta), jnp.int32(lo),
+                    mode=ref_packed.kernel_mode_for(sel_bucket), **kw)
+            want = np.asarray(want)
+            assert got.dtype == want.dtype == np.int32
+            b = sel_bucket
+            for name, a, z in (("win_rows", 0, S), ("stream_seg", S, S + b),
+                               ("stream_row", S + b, S + 2 * b),
+                               ("sel_rows", S + 2 * b, S + 3 * b)):
+                np.testing.assert_array_equal(got[a:z], want[a:z],
+                                              err_msg=f"step {step} {name}")
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got_mat.numpy(),
+                                          np.asarray(ref_mat))
+            assert (got[S + 2 * b:] >= 0).sum() == n_sel
+
+    def test_delta_past_the_matrix_raises(self):
+        mat = packed.new_resident_mat(512, "cpu")
+        delta = torch.zeros((8, 64), dtype=torch.int64)
+        with pytest.raises(ValueError, match="overflows"):
+            packed._splice_select_converge(
+                mat, delta, 500, num_segments=1024, sel_bucket=512,
+                seq_bucket=512)
+
+    def test_grow_mat(self):
+        import jax.numpy as jnp
+
+        from crdt_tpu.compat import enable_x64
+
+        rng = np.random.default_rng(7)
+        base = rng.integers(-1, 1 << 20, (7, 512)).astype(np.int64)
+        got = packed._grow_mat(torch.from_numpy(base.copy()), 2048)
+        with enable_x64(True):
+            want = np.asarray(ref_packed._grow_mat(jnp.asarray(base),
+                                                   new_cap=2048))
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            packed.new_resident_mat(512, "cpu").numpy(),
+            np.asarray(ref_packed._grow_mat(
+                jnp.zeros((7, 0), jnp.int64), new_cap=512)))
+
+    def test_relabel_mat_in_place(self):
+        import jax.numpy as jnp
+
+        from crdt_tpu.compat import enable_x64
+
+        rng = np.random.default_rng(9)
+        base = rng.integers(0, 1 << 30, (7, 1024)).astype(np.int64)
+        base[0] = rng.integers(0, 40, 1024)
+        base[4] = rng.integers(-1, 40, 1024)
+        perm = rng.permutation(40).astype(np.int32)
+        mat = torch.from_numpy(base.copy())
+        out = packed._relabel_mat(mat, torch.from_numpy(perm))
+        assert out.data_ptr() == mat.data_ptr()  # in place
+        with enable_x64(True):
+            want = np.asarray(ref_packed._relabel_mat(jnp.asarray(base),
+                                                      jnp.asarray(perm)))
+        np.testing.assert_array_equal(mat.numpy(), want)
+
+    @pytest.mark.parametrize("pref,kid", [(0, -1), (3, 0), (7, 5),
+                                          ((1 << 25) - 1, (1 << 21) - 1)])
+    def test_segkey_int(self, pref, kid):
+        want = int(ref_packed.segkey_of(np.int64(pref), np.int64(kid)))
+        assert staging.segkey_int(pref, kid) == want
+        assert int(staging.segkey_of(np.int64(pref), np.int64(kid))) == want
+        assert int(staging.segkey_of(torch.tensor(pref),
+                                     torch.tensor(kid))) == want

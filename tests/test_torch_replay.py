@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import bench
+from crdt_tpu.codec import lib0 as ref_lib0
 from crdt_tpu.codec import v1 as ref_v1
 from crdt_tpu.codec import native as ref_native
 from crdt_tpu.core.ids import DeleteSet
@@ -26,7 +27,7 @@ from crdt_tpu.core.records import ItemRecord
 from crdt_tpu.models import replay as ref_rp
 from crdt_tpu.ops import packed as ref_packed
 from crdt_tpu_torch import replay_trace
-from crdt_tpu_torch.codec import native
+from crdt_tpu_torch.codec import lib0, native
 from crdt_tpu_torch.models import replay as rp
 from crdt_tpu_torch.models import traces
 from crdt_tpu_torch.obs import Tracer, set_tracer
@@ -43,13 +44,35 @@ def _interpret_kernels(monkeypatch):
     monkeypatch.delenv(ref_packed._CHAIN_SPLIT_ENV, raising=False)
 
 
+def _as_port_values(v):
+    """A reference cache with the reference's ``undefined`` sentinel
+    replaced by the port's: each package decodes JS ``undefined`` to its
+    own ``lib0.UNDEFINED``."""
+    if v is ref_lib0.UNDEFINED:
+        return lib0.UNDEFINED
+    if isinstance(v, dict):
+        return {k: _as_port_values(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_as_port_values(x) for x in v]
+    return v
+
+
+def _has_reference_undefined(v) -> bool:
+    if v is ref_lib0.UNDEFINED:
+        return True
+    if isinstance(v, dict):
+        v = list(v.values())
+    return isinstance(v, list) and any(map(_has_reference_undefined, v))
+
+
 def _assert_identical(blobs):
     want = ref_rp.replay_trace(blobs, route="device")
     got = replay_trace(blobs, device="cpu")
     # default=repr: binary payloads (ContentBinary) are bytes
     assert json.dumps(got.cache, sort_keys=True, default=repr) == json.dumps(
         want.cache, sort_keys=True, default=repr)
-    assert got.cache == want.cache
+    assert got.cache == _as_port_values(want.cache)
+    assert not _has_reference_undefined(got.cache)
     assert got.snapshot == want.snapshot
     assert got.n_ops == want.n_ops
     return got
