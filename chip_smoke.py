@@ -45,7 +45,17 @@ JAX or of the reference package. Phases, each fatal on failure:
      cache; the same procedure at 1000 x 100 equals the CPU byte for
      byte; ``route="auto"`` and ``route="replica"`` equal the device
      route;
-  8. time each kernel on the inputs each card run gave it (CUDA events
+  8. the document API and the replica swarm (:func:`replica_phase`):
+     ``bench.py``'s product swarm through ``ypear_crdt`` at 12 x 25 in
+     scalar and resident mode (resident on the card equal to the CPU
+     byte for byte) and its mixed form at 16 x 200; then a resident
+     replica restarts from a ``MemoryPersistence`` log of the 1000 x
+     1600 trace, a late joiner ingests its full-state diff, both edit,
+     the log is compacted and a third replica restarts from it: each of
+     the three big rounds one device round with one ``stream_scatter``
+     launch; A's and B's states equal the card's cold device route,
+     and after the edits A's, B's and C's agree;
+  9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
      version and (where one exists) one library call; then count how
@@ -59,7 +69,9 @@ each trace under the profiler gives the share of it in which the card
 is busy (a lower bound where the trace loses activities).
 
 The line before the last is the kernels JSON object, at the scale
-run's device-route shapes; the last line is
+run's device-route and fleet-route shapes, the live replica's ingest
+shape (``"path": "incremental"``) and replica A's load shape
+(``"path": "replica"``); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -584,7 +596,14 @@ def main() -> int:
         same, hold_kernel)
     done("7 live replica")
 
-    # ---- 8. timing at the main path's shapes ---------------------------
+    # ---- 8. the document API and the replica swarm ----------------------
+    rep_seen, rep_launches = replica_phase(
+        torch, kernels, packed_mod, blobs_of["scale_1000x1600"],
+        json.dumps(device_results["scale_1000x1600"].cache, sort_keys=True),
+        hold_kernel)
+    done("8 replica")
+
+    # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
         if label.startswith("text"):
             continue  # held above; the text trace's shapes are small
@@ -610,6 +629,13 @@ def main() -> int:
         r["path"] = "incremental"
     log("kernel times (incremental ingest, packed._rank_compact): "
         + json.dumps(inc_rows))
+    # ... and on the replica path, at replica A's load shape
+    rep_rows = kernel_rows(torch, kernels, {"stream_scatter": rep_seen},
+                           {"stream_scatter": rep_launches}, max_err)
+    for r in rep_rows:
+        r["path"] = "replica"
+    log("kernel times (replica A's load, packed._rank_compact): "
+        + json.dumps(rep_rows))
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -617,11 +643,12 @@ def main() -> int:
     log("profiler check: 50 calls of seg_argmax_scan (2 launches each: "
         "clear_words and scan_tiles, 100 activities) traced (activities, "
         f"device ms a call) {json.dumps(checks)}")
-    done("8 kernel times")
+    done("9 kernel times")
     log(f"seconds a phase: {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
-    print(json.dumps({"kernels": scale_rows + inc_rows}), flush=True)
+    print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -868,6 +895,273 @@ def incremental_phase(torch, rp, traces, kernels, packed_mod, blobs_of,
              f"{route} route vs device route, card")
         log(f"trace_1000x100 [{route}]: path {res.path}; == device route")
     return seen["stream_scatter"][:1], counts["stream_scatter"]
+
+
+def swarm_round(mode: str, n_reps: int, n_ops: int, mixed: bool = False,
+                device=None) -> tuple:
+    """``bench.py``'s product swarm (``swarm_round``, bench.py:4670-4707)
+    through the port's ``ypear_crdt`` over the loopback router: fixed
+    client ids, batched receive, the plain op mix (map sets and list
+    pushes) or the mixed one (maps, list appends, mid-inserts at a live
+    index, nested array-in-map, delivery interleaved every 8 replicas).
+    Fails unless every replica's ``c`` is equal. Returns the replicas
+    and the wall seconds of the ops and their delivery."""
+    from crdt_tpu_torch.net import LoopbackNetwork, LoopbackRouter, ypear_crdt
+
+    net = LoopbackNetwork()
+    kw = {"device": device} if mode == "resident" else {}
+    reps = [ypear_crdt(LoopbackRouter(net, f"pk{i}"), topic="b",
+                       client_id=i + 1, merge_mode=mode,
+                       batch_incoming=True, **kw)
+            for i in range(n_reps)]
+    net.run()
+    t0 = time.perf_counter()
+    for i, r in enumerate(reps):
+        if mixed:
+            mixed_ops(r, i, n_ops)
+            if i % 8 == 7:
+                net.run()  # interleaved delivery mid-stream
+            continue
+        for j in range(n_ops):
+            if j % 2:
+                r.set("m", f"k{i}-{j}", j)
+            else:
+                r.push("l", f"v{i}-{j}")
+    net.run()
+    dt = time.perf_counter() - t0
+    first = dict(reps[0].c)
+    if any(dict(r.c) != first for r in reps[1:]):
+        raise AssertionError(f"swarm [{mode}, {device}]: replicas diverged")
+    return reps, dt
+
+
+def mixed_ops(r, i: int, n_ops: int, start: int = 0) -> None:
+    """``bench.py``'s mixed op mix for replica ``i``, ops ``start`` to
+    ``start + n_ops``, on the roots ``m``, ``l`` and ``nest``."""
+    for j in range(start, start + n_ops):
+        k = j % 5
+        if k == 0:
+            r.set("m", f"k{i % 16}-{j % 32}", [i, j])
+        elif k == 1:
+            r.push("l", f"v{i}-{j}")
+        elif k == 2:  # nested array-in-map
+            r.set("nest", f"arr{i % 8}", value=f"n{i}-{j}",
+                  array_method="push")
+        elif k == 3:  # mid-insert at a live index
+            cur = r.get("l") or []
+            r.insert("l", (i * 7 + j) % (len(cur) + 1), f"ins{i}-{j}")
+        else:
+            r.set("m", f"solo{i}", j)
+
+
+# phase 8's product swarms, (replicas, ops a replica): the plain op mix
+# and the mixed one
+SWARMS = ((12, 25), (16, 200))
+# the late joiner's ready-probe retry interval in phase 8, seconds
+LATE_JOIN_PROBE_RETRY_S = 120.0
+
+
+def replica_phase(torch, kernels, packed_mod, scale_blobs, want_cache: str,
+                  hold_kernel) -> tuple:
+    """The document API and the replica swarm: the port's user entry
+    (``ypear_crdt`` -> ``Replica`` -> ``Crdt`` / ``ResidentCrdt``).
+
+    1. The product swarm (:func:`swarm_round`) at 12 x 25 in
+       ``"scalar"`` mode, in ``"resident"`` mode on the card and on
+       the CPU, and the mixed form at 16 x 200 in both modes: every
+       replica's ``c`` equal within and across modes, and at 12 x 25
+       each resident replica on the card encodes the same full state
+       and state vector as on the CPU, byte for byte.
+    2. Replica A (resident, on the card) restarts from a
+       ``MemoryPersistence`` log of ``scale_blobs`` (one update a
+       writer): its load is one ``apply``, one device round; its ``c``
+       equals ``want_cache`` (the cold device route on the same blobs).
+    3. Replica B (resident, on the card, no log) joins late: A's
+       ready-probe answer is its full-state diff, which B ingests in
+       one device round; B's ``c`` and state vector equal A's.
+    4. A and B each run the mixed op mix for 200 ops (roots ``m``,
+       ``l``, ``nest``), delivery interleaved, then one forced
+       ``anti_entropy()``: equal ``c``.
+    5. ``A.compact()`` leaves one snapshot in the store, squashed from
+       the resident columns; A closes and replica C restarts from the
+       store in one device round: C's ``c`` equals A's and B's.
+
+    Counts are zeroed before A's load and read after C's restart: on
+    the card ``stream_scatter`` launches once a big round (A, B, C) and
+    nowhere else, no other kernel launches, and every ``device.*``
+    ladder counter is 0; every scatter input equals the plain version.
+    Returns the scatter's inputs of A's load and its launch count."""
+    from crdt_tpu_torch.net import (LoopbackNetwork, LoopbackRouter,
+                                    MemoryPersistence, ypear_crdt)
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+
+    label = "replica [cuda]"
+    sync = torch.cuda.synchronize
+
+    # ---- 1. the product swarm
+    (n_small, k_small), (n_mixed, k_mixed) = SWARMS
+    walls: dict = {}
+    states: dict = {}
+    small: dict = {}
+    for mode, dev in (("scalar", None), ("resident", "cuda"),
+                      ("resident", "cpu")):
+        reps, walls[f"{n_small}x{k_small} {mode} {dev}"] = swarm_round(
+            mode, n_small, k_small, device=dev)
+        states[(n_small, mode, dev)] = dict(reps[0].c)
+        small[(mode, dev)] = reps
+    for mode, dev in (("scalar", None), ("resident", "cuda")):
+        reps, walls[f"{n_mixed}x{k_mixed} mixed {mode} {dev}"] = \
+            swarm_round(mode, n_mixed, k_mixed, mixed=True, device=dev)
+        states[(n_mixed, mode, dev)] = dict(reps[0].c)
+    for n in (n_small, n_mixed):
+        got = [s for key, s in states.items() if key[0] == n]
+        if any(s != got[0] for s in got[1:]):
+            raise AssertionError(f"swarm {n} replicas: modes disagree")
+    for card, cpu in zip(small[("resident", "cuda")],
+                         small[("resident", "cpu")]):
+        if card.encode_state_as_update() != cpu.encode_state_as_update() \
+                or card.encode_state_vector() != cpu.encode_state_vector():
+            raise AssertionError(
+                f"swarm {n_small}x{k_small} resident: card != CPU")
+    log(f"{label}: product swarm, wall s {json.dumps(walls)}; c equal "
+        f"within and across modes; {n_small}x{k_small} resident on "
+        "the card == CPU byte for byte (full state, state vector)")
+    del small
+
+    # ---- 2-5. the resident replica at full size
+    tracer = set_tracer(Tracer(enabled=True))
+    seen: dict = {}
+    secs: dict = {}
+    rounds: dict = {}
+
+    def spans() -> dict:
+        return {k: v["total_s"] for k, v in
+                tracer.report()["spans"].items()
+                if k.startswith("incremental.")}
+
+    @contextmanager
+    def step(name: str, big: bool = False):
+        sync()
+        s0, d0 = spans(), packed_mod.device_dispatch_count
+        n0 = kernels.launch_counts()["stream_scatter"]
+        t0 = time.perf_counter()
+        yield
+        sync()
+        secs[name] = time.perf_counter() - t0
+        if big:
+            rounds[name] = {
+                "device_rounds": packed_mod.device_dispatch_count - d0,
+                "stream_scatter": kernels.launch_counts()["stream_scatter"]
+                - n0,
+                "spans": {k: round(v - s0.get(k, 0.0), 6)
+                          for k, v in spans().items()},
+            }
+            if rounds[name]["device_rounds"] != 1:
+                raise AssertionError(
+                    f"{label}: {name} took {rounds[name]['device_rounds']}"
+                    " device rounds, not one")
+
+    net = LoopbackNetwork()
+    store = MemoryPersistence()
+    store.store_updates("doc", scale_blobs)
+
+    def replica(pk, persistence=None, **options):
+        return ypear_crdt(LoopbackRouter(net, pk), topic="doc",
+                          merge_mode="resident", persistence=persistence,
+                          device="cuda", **options)
+
+    sync()
+    kernels.reset_launches()
+    with capture_kernel_inputs(seen, (packed_mod, "stream_scatter")):
+        with step("A load", big=True):
+            a = replica("A", store)
+        t0 = time.perf_counter()
+        a_cache = json.dumps(dict(a.c), sort_keys=True)
+        secs["A first cache read"] = time.perf_counter() - t0
+        if a_cache != want_cache:
+            raise AssertionError(f"{label}: A's c != the cold device route")
+
+        # B joins: A answers B's ready probe with its full-state diff
+        answers: list = []
+        a_encode = a.doc.encode_state_as_update
+
+        def timed_encode(sv=None):
+            t = time.perf_counter()
+            out = a_encode(sv)
+            answers.append((time.perf_counter() - t, len(out)))
+            return out
+
+        a.doc.encode_state_as_update = timed_encode
+        with step("B join", big=True):
+            # A's answer takes tens of seconds at full size: B's probe
+            # retry waits past it (the default 0.5 s re-probes while A
+            # encodes, and A encodes the whole diff twice)
+            b = replica("B", probe_retry_s=LATE_JOIN_PROBE_RETRY_S)
+            net.run()
+        del a.doc.encode_state_as_update
+        if not b.synced or b.state_vector() != a.state_vector():
+            raise AssertionError(f"{label}: B's state vector != A's")
+        t0 = time.perf_counter()
+        b_cache = json.dumps(dict(b.c), sort_keys=True)
+        secs["B first cache read"] = time.perf_counter() - t0
+        if b_cache != a_cache:
+            raise AssertionError(f"{label}: B's c != A's")
+
+        # live editing on both, then one forced anti-entropy round
+        with step("edits"):
+            for n in range(4):
+                mixed_ops(a, 0, 50, start=50 * n)
+                mixed_ops(b, 1, 50, start=50 * n)
+                net.run()
+            sent = a.anti_entropy()
+            net.run()
+        if dict(a.c) != dict(b.c):
+            raise AssertionError(f"{label}: A and B diverged after edits")
+
+        # compaction, then C restarts from the compacted log
+        with step("compact"):
+            a.compact()
+        if store.get_meta("doc")["count"] != 1:
+            raise AssertionError(f"{label}: compaction left "
+                                 f"{store.get_meta('doc')['count']} blobs")
+        snap_bytes = store.get_meta("doc")["size"]
+        a.self_close()
+        net.run()
+        with step("C restart", big=True):
+            c = replica("C", store)
+        net.run()
+    counts = kernels.launch_counts()
+    set_tracer(Tracer(enabled=False))
+    guard = {k: v for k, v in tracer.report()["counters"].items()
+             if k.startswith("device.")}
+    c_cache = json.dumps(dict(c.c), sort_keys=True)
+    if c_cache != json.dumps(dict(a.c), sort_keys=True) or \
+            c_cache != json.dumps(dict(b.c), sort_keys=True):
+        raise AssertionError(f"{label}: C's c != A's and B's")
+    big = [r["stream_scatter"] for r in rounds.values()]
+    want = {name: 0 for name in counts}
+    want["stream_scatter"] = 3
+    if counts != want or big != [1, 1, 1]:
+        raise AssertionError(f"{label}: launches {counts}, "
+                             f"a big round {big}")
+    if any(guard.values()):
+        raise AssertionError(f"{label}: the failure ladder ran: {guard}")
+    calls = seen.get("stream_scatter", [])
+    for args in calls:
+        hold_kernel("stream_scatter", *args)
+    log(f"{label}: A restarted from a log of {len(scale_blobs)} updates "
+        f"({sum(map(len, scale_blobs))} bytes), B joined late, both "
+        f"edited, C restarted from the compacted log ({snap_bytes} "
+        "bytes): A's and B's c equal the cold device route, and after "
+        "the edits A's, B's and C's agree")
+    log(f"{label}: seconds {json.dumps(secs)}; probe answers to B "
+        f"(s, bytes; B's probe retry {LATE_JOIN_PROBE_RETRY_S} s) "
+        f"{json.dumps(answers)}; anti-entropy sent {json.dumps(sent)}")
+    log(f"{label}: big rounds {json.dumps(rounds)}")
+    log(f"{label}: launches {counts}; guard counters {json.dumps(guard)}; "
+        f"stream_scatter == plain on all {len(calls)} inputs, (B, n_out) "
+        f"{json.dumps([[int(p.shape[0]), n] for p, n in calls])}")
+    return calls[:1], counts["stream_scatter"]
 
 
 def sync_warnings(torch, run) -> dict:
