@@ -55,6 +55,14 @@ JAX or of the reference package. Phases, each fatal on failure:
      the three big rounds one device round with one ``stream_scatter``
      launch; A's and B's states equal the card's cold device route,
      and after the edits A's, B's and C's agree;
+  10. the multi-tenant server (``MultiDocServer``,
+     :func:`multidoc_phase`), before the timing: ``bench.py``'s cold
+     tenants (1000 docs of 64 ops and 4 of 4096) in one tick, packed, one
+     dispatch a doc, and on the CPU, equal to each doc's own replay; 32
+     warm docs of 32,768 ops through a pooled and an unpooled server,
+     each pooled steady tick one pool dispatch and one ``stream_scatter``
+     launch against 32 unpooled; eviction to snapshots with rehydrate;
+     checkpoint, restore and ``cold_start``;
   9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
@@ -70,8 +78,10 @@ is busy (a lower bound where the trace loses activities).
 
 The line before the last is the kernels JSON object, at the scale
 run's device-route and fleet-route shapes, the live replica's ingest
-shape (``"path": "incremental"``) and replica A's load shape
-(``"path": "replica"``); the last line is
+shape (``"path": "incremental"``), replica A's load shape
+(``"path": "replica"``), the largest cold multi-tenant batch
+(``"path": "multidoc"``) and a steady pooled flush (``"path": "pool"``);
+the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -603,6 +613,10 @@ def main() -> int:
         hold_kernel)
     done("8 replica")
 
+    # ---- 10. the multi-tenant server (before the timing, which it feeds)
+    mt = multidoc_phase(torch, rp, traces, kernels, packed_mod, hold_kernel)
+    done("10 multi-tenant server")
+
     # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
         if label.startswith("text"):
@@ -636,6 +650,17 @@ def main() -> int:
         r["path"] = "replica"
     log("kernel times (replica A's load, packed._rank_compact): "
         + json.dumps(rep_rows))
+    # ... and on the multi-tenant server: its largest cold batch, and
+    # the pooled flush's call site (packed._rank_compact through
+    # _pool_splice_body) at a steady tick's shape
+    mt_rows = []
+    for path, (seen, n) in mt.items():
+        rows = kernel_rows(torch, kernels, seen, dict.fromkeys(seen, n),
+                           max_err)
+        for r in rows:
+            r["path"] = path
+        log(f"kernel times ({path}): " + json.dumps(rows))
+        mt_rows += rows
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -647,7 +672,7 @@ def main() -> int:
     log(f"seconds a phase: {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
-    print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows}),
+    print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -895,6 +920,401 @@ def incremental_phase(torch, rp, traces, kernels, packed_mod, blobs_of,
              f"{route} route vs device route, card")
         log(f"trace_1000x100 [{route}]: path {res.path}; == device route")
     return seen["stream_scatter"][:1], counts["stream_scatter"]
+
+
+# phase 10's deployment: bench.py's --multitenant legs at full size
+# (bench.py:1106-1110 for the cold tenants, bench.py:1433 for the warm
+# generator; the warm ops a doc scaled so the pool holds ~1.05M rows)
+COLD_TENANTS = (1000, 64, 4, 4096)   # build_doc_trace(n_small, ops_small,
+#                                      n_big, ops_big)
+COLD_MAX_ROWS = 1 << 14
+WARM_DOCS = 32
+WARM_OPS = 32768
+WARM_DELTA = 64
+WARM_STEADY_TICKS = 4
+
+
+class _Log:
+    """An in-script persistence over one doc's blob history, with the
+    two calls ``cold_start`` makes."""
+
+    def __init__(self, blobs):
+        self.blobs = list(blobs)
+
+    def get_updates_since(self, doc, seq: int):
+        return self.blobs[seq:]
+
+    def get_all_updates(self, doc):
+        return list(self.blobs)
+
+
+def multidoc_phase(torch, rp, traces, kernels, packed_mod,
+                   hold_kernel) -> dict:
+    """The multi-tenant server (``MultiDocServer``) on the card.
+
+    1. Cold tenants: ``build_doc_trace(1000, 64, 4, 4096)`` through one
+       tick of the server on the card (packed batches of at most 2^14
+       rows), again with ``pack_docs=False`` (one dispatch a doc) and on
+       the CPU: per-doc digests equal, and equal to each doc's own
+       ``replay_trace`` on the card. Every packed dispatch launches
+       ``seg_argmax_scan`` and ``stream_scatter`` once, each held against
+       its plain version on its inputs; no doc falls back. One more card
+       tick under the sync debug mode: no host sync between a batch's
+       stage and its fetch.
+    2. Warm tenants: 32 ``_SteadyStream`` docs of 32,768 ops through a
+       pooled and an unpooled server (``CRDT_TPU_DEVICE_MIN=1``): a cold
+       tick, a promotion tick, a warm delta tick, then 4 timed steady
+       ticks of 64-op deltas. Each pooled steady tick is exactly one pool
+       dispatch and one ``stream_scatter`` launch (held against its plain
+       version); the unpooled server does 32 of each. Digests equal after
+       every tick, and at the end equal to the card's cold replay of each
+       doc's union.
+    3. Eviction: a third pooled server whose resident budget is half the
+       warm set's, with a snapshot store, fed the same blobs half the docs
+       a tick: evictions write snapshots, re-touched docs rehydrate and
+       apply their tail, digests equal step 2's, the resident peak stays
+       within the budget.
+    4. Checkpoint and restore: step 2's pooled server checkpointed and
+       restored into a fresh server; one more tick on both (a steady delta
+       and one concurrent map write a doc) is one pool dispatch on each,
+       with equal digests; ``cold_start`` of one doc from the checkpoint
+       store and an in-script log takes the snapshot rung with an equal
+       cache.
+
+    No counted host detour may fire: no cold fallback doc, no pool
+    width overflow round, no pool-budget refusal, no snapshot fallback,
+    no device ladder rung. Returns the kernel inputs and launches for
+    the ``"multidoc"`` and ``"pool"`` rows of the kernels line."""
+    import os
+    import tempfile
+
+    from crdt_tpu_torch.codec import v1
+    from crdt_tpu_torch.core.ids import DeleteSet
+    from crdt_tpu_torch.core.records import ItemRecord
+    from crdt_tpu_torch.models.incremental import IncrementalReplay
+    from crdt_tpu_torch.models.multidoc import MultiDocServer, cache_digest
+    from crdt_tpu_torch.obs import (TickTimeline, Tracer, set_timeline,
+                                    set_tracer)
+    from crdt_tpu_torch.storage.snapshot import SnapshotStore
+
+    sites = ((packed_mod, "seg_argmax_scan"), (packed_mod, "stream_scatter"))
+
+    def counted(run, device: str):
+        """``run()`` with the launch counts zeroed just before and read
+        just after, the tracer and the timeline on, the kernels' inputs
+        captured. Returns (result, wall s, launches, inputs, tracer
+        report, timeline records, device dispatches)."""
+        tracer = set_tracer(Tracer(enabled=True))
+        tl = set_timeline(TickTimeline(enabled=True))
+        seen: dict = {}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        d0 = packed_mod.device_dispatch_count
+        t0 = time.perf_counter()
+        with capture_kernel_inputs(seen, *sites):
+            out = run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        disp = packed_mod.device_dispatch_count - d0
+        set_tracer(Tracer(enabled=False))
+        set_timeline(TickTimeline(enabled=False))
+        rep = tracer.report()
+        guard = {k: v for k, v in rep["counters"].items()
+                 if k.startswith("device.") or k.startswith("snap.fallbacks")
+                 or k.startswith("tenant.pool_refusals")
+                 or k.startswith("tenant.pool_host_rounds")}
+        if guard:
+            raise AssertionError(f"multidoc: a host detour or device "
+                                 f"fallback fired: {guard}")
+        return out, wall, counts, seen, rep, tl.records(), disp
+
+    def lanes(rec) -> dict:
+        return {k: round(v, 6) for k, v in sorted(rec["lanes"].items())}
+
+    # ---- 1. cold tenants
+    label = "multidoc_cold"
+    t0 = time.perf_counter()
+    docs = traces.build_doc_trace(*COLD_TENANTS)
+    rows = sum(len(rp.decode(b)["client"]) for b in docs.values())
+    log(f"{label}: build_doc_trace{COLD_TENANTS}: {len(docs)} docs, {rows} "
+        f"rows, built in {time.perf_counter() - t0:.3f} s")
+
+    def cold_tick(device: str, **kw):
+        srv = MultiDocServer(max_rows_per_dispatch=COLD_MAX_ROWS,
+                             device=device, **kw)
+        for d, blobs in docs.items():
+            srv.submit_many(d, blobs)
+        rep, wall, counts, seen, _, recs, _ = counted(srv.tick, device)
+        digests = {d: srv.digest(d) for d in docs}
+        if rep.docs != len(docs) or rep.fallback_docs:
+            raise AssertionError(f"{label} [{device}, {kw}]: {rep}")
+        return srv, rep, wall, counts, seen, recs[-1], digests
+
+    # warm-up: CUDA context, allocator pools
+    cold_tick("cuda")
+    runs = {}
+    for name, device, kw in (("packed", "cuda", {}),
+                             ("per-doc", "cuda", {"pack_docs": False}),
+                             ("packed", "cpu", {})):
+        srv, rep, wall, counts, seen, rec, digests = cold_tick(device, **kw)
+        runs[(name, device)] = (rep, seen, digests)
+        log(f"{label} [{name}, {device}]: {len(docs)} docs in {wall:.3f} s "
+            f"({len(docs) / wall:.1f} docs/s); {rep.dispatches} dispatches, "
+            f"{len(rep.batches)} batches of {list(rep.batches)[:8]}...; "
+            f"launches {counts}")
+        log(f"{label} [{name}, {device}]: timeline lanes (s) "
+            f"{json.dumps(lanes(rec))}; stall {rec['stall_ms']:.3f} ms; "
+            f"overlap_efficiency {rec['overlap_efficiency']}")
+        want = {k: 0 for k in counts}
+        if device == "cuda":
+            want.update(dict.fromkeys(ROUTE_KERNELS["device"],
+                                      rep.dispatches))
+        if counts != want:
+            raise AssertionError(f"{label} [{name}, {device}]: launches "
+                                 f"{counts} for {rep.dispatches} dispatches")
+        for kname, calls in seen.items():
+            for args in calls:
+                hold_kernel(kname, *args)
+    ref = runs[("packed", "cuda")][2]
+    for key, (_, _, digests) in runs.items():
+        if digests != ref:
+            raise AssertionError(f"{label}: digests of {key} differ")
+    t0 = time.perf_counter()
+    for d, blobs in docs.items():
+        if cache_digest(rp.replay_trace(blobs, device="cuda").cache) != ref[d]:
+            raise AssertionError(f"{label}: {d} differs from replay_trace")
+    log(f"{label}: packed == per-doc == CPU digests, == each doc's "
+        f"replay_trace on the card ({time.perf_counter() - t0:.3f} s for "
+        f"{len(docs)} replays); kernels == plain on every dispatch's inputs")
+    cold_seen = runs[("packed", "cuda")][1]
+    cold_launches = runs[("packed", "cuda")][0].dispatches
+
+    # one more packed card tick: no host sync between a batch's stage
+    # and its fetch (the dispatch is enqueued, the fetch is the sync)
+    srv = MultiDocServer(max_rows_per_dispatch=COLD_MAX_ROWS, device="cuda")
+    for d, blobs in docs.items():
+        srv.submit_many(d, blobs)
+    found: dict = {}
+    enqueue = srv._dispatch_async
+
+    def watched(comb):
+        out = []
+        for k, n in sync_warnings(
+                torch, lambda: out.append(enqueue(comb))).items():
+            # the mode's own notice, raised when it is switched on
+            if "debug mode is a prototype" not in k:
+                found[k] = found.get(k, 0) + n
+        return out[0]
+
+    srv._dispatch_async = watched
+    srv.tick()
+    log(f"{label}: host syncs between stage and fetch of every packed "
+        f"batch (sync debug mode): {json.dumps(found)}")
+    if found:
+        raise AssertionError(f"{label}: a batch's dispatch synced the host")
+    del srv, runs
+
+    # ---- 2. warm tenants, pooled and unpooled
+    label = "multidoc_warm"
+    prev_min = os.environ.get("CRDT_TPU_DEVICE_MIN")
+    os.environ["CRDT_TPU_DEVICE_MIN"] = "1"  # as bench.py's pooled leg
+    try:
+        t0 = time.perf_counter()
+        streams = [traces._SteadyStream(500 + i) for i in range(WARM_DOCS)]
+        names = [f"w{i:02d}" for i in range(WARM_DOCS)]
+        ticks = [dict(zip(names, (s.delta(WARM_OPS) for s in streams)))]
+        for _ in range(2 + WARM_STEADY_TICKS):
+            ticks.append(dict(zip(names, (s.delta(WARM_DELTA)
+                                          for s in streams))))
+        log(f"{label}: {WARM_DOCS} docs x {WARM_OPS} ops, then "
+            f"{len(ticks) - 1} deltas of {WARM_DELTA} ops a doc, built in "
+            f"{time.perf_counter() - t0:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        pooled = MultiDocServer(device="cuda", pool=True)
+        private = MultiDocServer(device="cuda", pool=False)
+        kinds = ("cold", "promotion", "warm delta") + ("steady",) * \
+            WARM_STEADY_TICKS
+        tick_digests = []
+        pool_seen: list = []
+        walls = {"pooled": [], "unpooled": []}
+        for t, (kind, blobs) in enumerate(zip(kinds, ticks)):
+            out = {}
+            for name, srv in (("pooled", pooled), ("unpooled", private)):
+                for d, b in blobs.items():
+                    srv.submit(d, b)
+                rep, wall, counts, seen, trep, recs, disp = counted(
+                    srv.tick, "cuda")
+                if rep.fallback_docs:
+                    raise AssertionError(f"{label} [{name}] tick {t}: {rep}")
+                spans = {k: round(v["total_s"], 6)
+                         for k, v in trep["spans"].items()
+                         if k.startswith("pool.") or k.startswith(
+                             "incremental.")}
+                h2d = trep["counters"].get("xfer.h2d_bytes", 0)
+                log(f"{label} [{name}] tick {t} ({kind}): {wall:.4f} s; "
+                    f"{rep}; device dispatches {disp}; launches {counts}; "
+                    f"h2d bytes {h2d}; spans (s) {json.dumps(spans)}; "
+                    f"lanes (s) {json.dumps(lanes(recs[-1]))}")
+                if kind == "steady":
+                    walls[name].append(wall)
+                    want = {k: 0 for k in counts}
+                    if name == "pooled":
+                        want["stream_scatter"] = 1
+                        ok = rep.pool_dispatches == 1 and disp == 1
+                        pool_seen.extend(seen["stream_scatter"])
+                    else:
+                        want["stream_scatter"] = WARM_DOCS
+                        ok = rep.pool_dispatches == 0 and disp == WARM_DOCS
+                    if not ok or counts != want:
+                        raise AssertionError(
+                            f"{label} [{name}] tick {t}: {disp} dispatches, "
+                            f"launches {counts}, {rep}")
+                    for args in seen.get("stream_scatter", ()):
+                        hold_kernel("stream_scatter", *args)
+                t1 = time.perf_counter()
+                out[name] = {d: srv.digest(d) for d in names}
+                log(f"{label} [{name}] tick {t}: digests read in "
+                    f"{time.perf_counter() - t1:.3f} s")
+            if out["pooled"] != out["unpooled"]:
+                raise AssertionError(f"{label}: tick {t}: pooled != unpooled")
+            tick_digests.append(out["pooled"])
+        pool = pooled.pool
+        for srv in (pooled, private):
+            for d in names:
+                st = srv._docs[d]
+                if st.resident is None or st.resident.pool_refusals or (
+                        srv is pooled and st.resident.pool is not pool):
+                    raise AssertionError(f"{label}: {d} left its route")
+        if pool.host_rounds or pooled.snap_fallback_count:
+            raise AssertionError(f"{label}: a counted host detour fired")
+        # the rows one doc's steady round re-converges: the segments its
+        # last delta touched
+        eng = pooled._docs[names[0]].resident
+        touched = {eng._row_segkey(r)
+                   for r in range(eng.cols.n - WARM_DELTA, eng.cols.n)}
+        n_sel = sum(len(eng._seg_rows[sk]) for sk in touched)
+        log(f"{label}: steady tick wall (s) pooled {walls['pooled']}, "
+            f"unpooled {walls['unpooled']}; pool device_bytes "
+            f"{pool.device_bytes()}, peak_bytes {pool.peak_bytes}, "
+            f"relocations {pool.relocations}, compactions "
+            f"{pool.compactions}, dispatches {pool.dispatches}; "
+            f"torch.cuda.max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()}; sel_bucket (the "
+            f"scatter's B) {[int(a.shape[0]) for a, _ in pool_seen]}")
+        log(f"{label}: the auto rule at this tick's largest segment "
+            f"({n_sel} rows a doc): crossover_use_host -> "
+            f"{IncrementalReplay.crossover_use_host(n_sel, 'cuda')}; "
+            f"calibration {json.dumps(IncrementalReplay.calibration_info('cuda'))}")
+        t0 = time.perf_counter()
+        for i, d in enumerate(names):
+            union = [tk[d] for tk in ticks]
+            got = cache_digest(rp.replay_trace(union, device="cuda").cache)
+            if got != tick_digests[-1][d]:
+                raise AssertionError(f"{label}: {d} != its cold replay")
+        log(f"{label}: pooled == unpooled after every tick, == the cold "
+            f"device replay of each doc's union ({time.perf_counter() - t0:.3f}"
+            f" s); scatter == plain on every steady flush's inputs")
+        warm_bytes = pooled.resident_bytes_total()
+        del private
+
+        # ---- 3. eviction and rehydrate
+        label = "multidoc_evict"
+        budget = warm_bytes // 2
+        with tempfile.TemporaryDirectory() as tmp:
+            third = MultiDocServer(device="cuda", pool=True,
+                                   resident_max_bytes=budget,
+                                   snap_store=SnapshotStore(tmp))
+            tracer = set_tracer(Tracer(enabled=True))
+            t0 = time.perf_counter()
+            for t, blobs in enumerate(ticks):
+                for half in (0, 1):
+                    for d, b in blobs.items():
+                        if int(d[1:]) % 2 == half:
+                            third.submit(d, b)
+                    rep = third.tick()
+                    if rep.fallback_docs:
+                        raise AssertionError(f"{label}: tick {t}: {rep}")
+                if {d: third.digest(d) for d in names} != tick_digests[t]:
+                    raise AssertionError(f"{label}: tick {t} != step 2")
+            wall = time.perf_counter() - t0
+            set_tracer(Tracer(enabled=False))
+            snap = {k: v for k, v in tracer.report()["counters"].items()
+                    if k.startswith("snap.") or k.startswith("tenant.")}
+            log(f"{label}: budget {budget} bytes (half of {warm_bytes}); "
+                f"{2 * len(ticks)} half ticks in {wall:.3f} s; resident peak "
+                f"{third.resident_peak_bytes()}; counters {json.dumps(snap)}")
+            detours = [k for k in tracer.report()["counters"]
+                       if k.startswith(("snap.fallbacks", "device.",
+                                        "tenant.pool_refusals",
+                                        "tenant.pool_host_rounds"))]
+            if not snap.get("snap.evict_writes") or not snap.get(
+                    "snap.loads") or detours or \
+                    third.snap_fallback_count or \
+                    third.resident_peak_bytes() > budget:
+                raise AssertionError(f"{label}: evictions, rehydrates or "
+                                     "the budget not as required")
+            del third
+
+        # ---- 4. checkpoint and restore
+        label = "multidoc_restore"
+        with tempfile.TemporaryDirectory() as tmp:
+            store = SnapshotStore(tmp)
+            t0 = time.perf_counter()
+            n_ckpt = pooled.checkpoint(store)
+            ckpt_s = time.perf_counter() - t0
+            fresh = MultiDocServer(device="cuda")
+            t0 = time.perf_counter()
+            n_rest = fresh.restore(store)
+            restore_s = time.perf_counter() - t0
+            log(f"{label}: checkpoint of {n_ckpt} docs {ckpt_s:.3f} s; "
+                f"restore of {n_rest} docs {restore_s:.3f} s")
+            if n_ckpt != WARM_DOCS or n_rest != WARM_DOCS:
+                raise AssertionError(f"{label}: {n_ckpt} / {n_rest} docs")
+            # a steady delta and one concurrent map write a doc: the
+            # rehydrated engines advance tail-shaped deltas on the host
+            # (no dispatch, as in the reference); the concurrent write
+            # needs the device
+            extra = {
+                d: [s.delta(WARM_DELTA), v1.encode_update([ItemRecord(
+                    client=1_000_000 + i, clock=0, parent_root="m",
+                    key="k0", content=-i)], DeleteSet())]
+                for i, (d, s) in enumerate(zip(names, streams))}
+            reps = {}
+            for name, srv in (("checkpointed", pooled), ("restored", fresh)):
+                for d, bl in extra.items():
+                    for b in bl:
+                        srv.submit(d, b)
+                rep, wall, counts, _, _, _, disp = counted(srv.tick, "cuda")
+                reps[name] = rep
+                log(f"{label} [{name}]: tick {wall:.4f} s; {rep}; device "
+                    f"dispatches {disp}; launches {counts}")
+                if rep.pool_dispatches != 1 or disp != 1:
+                    raise AssertionError(f"{label} [{name}]: {rep}")
+            after = {d: pooled.digest(d) for d in names}
+            if {d: fresh.digest(d) for d in names} != after:
+                raise AssertionError(f"{label}: restored != checkpointed")
+            d = names[0]
+            hist = [tk[d] for tk in ticks] + extra[d]
+            t0 = time.perf_counter()
+            eng, path = rp.cold_start(d, _Log(hist), store, device="cuda")
+            cs = time.perf_counter() - t0
+            if path != "snapshot" or cache_digest(eng.cache) != after[d]:
+                raise AssertionError(f"{label}: cold_start {path}")
+            log(f"{label}: restored == checkpointed after one more tick; "
+                f"cold_start({d}) path {path} in {cs:.3f} s, cache equal")
+    finally:
+        if prev_min is None:
+            os.environ.pop("CRDT_TPU_DEVICE_MIN", None)
+        else:
+            os.environ["CRDT_TPU_DEVICE_MIN"] = prev_min
+
+    # the largest cold batch's inputs and one steady flush's, first
+    biggest = {k: sorted(v, key=lambda a: -int(a[0].shape[0]))
+               for k, v in cold_seen.items()}
+    return {"multidoc": (biggest, cold_launches),
+            "pool": ({"stream_scatter": pool_seen}, len(pool_seen))}
 
 
 def swarm_round(mode: str, n_reps: int, n_ops: int, mixed: bool = False,

@@ -90,9 +90,6 @@ from crdt_tpu_torch.ops.staging import (_KID_BITS, _PREF_BITS, segkey_int,
                                         segkey_of)
 from crdt_tpu_torch.ops.yata import order_hard_segment, order_sequences
 
-# where the pooled matrix (and the snapshot rehydrate) is queued
-_POOL_ITEM = "ROADMAP.md queue A item 6 (multi-tenant server and pooled matrix)"
-
 
 def _octave(n: int, floor: int) -> int:
     """Factor-8 size bucket for the incremental dispatch's shapes. A
@@ -183,8 +180,10 @@ class IncrementalReplay:
     model in :meth:`_calibrate`. ``CRDT_TPU_DEVICE_MIN`` or the
     constructor argument pin it explicitly.
 
-    ``pool=`` (the multi-tenant server's pooled matrix) is not ported
-    yet and raises ``NotImplementedError``."""
+    ``pool=`` attaches the engine to a
+    :class:`crdt_tpu_torch.ops.resident.ResidentPool` (the multi-tenant
+    server's pooled matrix), which must live on the same device: its
+    device rounds then defer to the pool's one flush a tick."""
 
     # process-wide host/device crossover calibration, one probe per
     # device type, filled lazily by _calibrate()
@@ -291,10 +290,6 @@ class IncrementalReplay:
     def __init__(self, capacity: int = 1 << 14,
                  device_min_rows: Optional[int] = None,
                  pool=None, *, device="cuda"):
-        if pool is not None:
-            raise NotImplementedError(
-                f"IncrementalReplay(pool=...) is not ported yet ({_POOL_ITEM})"
-            )
         # the device resolves HERE, outside any guarded dispatch: a
         # missing card raises at construction instead of sending every
         # round quietly down the host rung of the failure ladder
@@ -376,12 +371,29 @@ class IncrementalReplay:
         self._capacity = capacity
         self._mat: Optional[torch.Tensor] = None
         self.n_dev = 0
-        # snapshot-rehydrated engines carry exact winner / order caches
-        # but NO device state: their device rounds first try the
-        # O(delta) host tail advances. The rehydrate that sets this is
-        # not ported yet (the multi-tenant server's snapshot store);
-        # the round keeps its branch for it.
+        # snapshot-rehydrated engines (storage/snapshot.py:rehydrate)
+        # carry exact winner / order caches but NO device state: their
+        # device rounds first try the O(delta) host tail advances, so
+        # the recovery path never pays an O(doc) re-splice just to
+        # append
         self._from_snapshot = False
+        # pooled resident matrix: when attached, device rounds DEFER to
+        # the shared pool — the server's tick flushes every warm doc's
+        # delta in ONE dispatch — and this engine never allocates a
+        # private matrix. Registration is host bookkeeping only; a
+        # pool-budget refusal later falls back to the private route
+        # (correctness never depends on pooling).
+        if pool is not None and pool.device != self.device:
+            raise ValueError(
+                f"IncrementalReplay on {self.device} cannot attach to a "
+                f"ResidentPool on {pool.device}"
+            )
+        self.pool = pool
+        # pool-budget refusals that moved this engine to a private
+        # matrix (each routed its round to the host): a counted detour
+        self.pool_refusals = 0
+        if pool is not None:
+            pool.register(self)
 
     def _ensure_mat(self) -> torch.Tensor:
         if self._mat is None:
@@ -402,8 +414,13 @@ class IncrementalReplay:
             perm = np.zeros(len(old), np.int32)
             for raw, od in old.items():
                 perm[od] = dense[raw]
-            pk._relabel_mat(self._mat, xfer_put(
-                perm, device=self.device, label="incremental.relabel"))
+            if self.pool is not None:
+                # pooled: only THIS doc's extent columns relabel (ids
+                # are doc-local in the pooled matrix)
+                self.pool.relabel(self, perm)
+            else:
+                pk._relabel_mat(self._mat, xfer_put(
+                    perm, device=self.device, label="incremental.relabel"))
             # host columns keep RAW ids; only the device matrix embeds
             # dense ids, so no host fixups
         # the table commits only AFTER the device relabel succeeded
@@ -462,6 +479,10 @@ class IncrementalReplay:
         the seam for callers that decoded once for their own purposes
         (replay_trace's host route) and must not pay the codec
         twice."""
+        if self.pool is not None and self.pool.has_pending(self):
+            # a deferred pooled round left winners/orders stale; the
+            # host paths below may read them — settle first
+            self.pool.flush()
         n_raw = len(dec["client"])
         touched: set = set()
 
@@ -608,10 +629,15 @@ class IncrementalReplay:
         matrix (when materialized) plus the host integer column store —
         the allocations that scale with doc size and survive across
         rounds (content payloads live in the caller's blobs either
-        way)."""
+        way). A POOLED doc accounts its reserved extent share of the
+        shared matrix (8 lanes x extent capacity — the extent reserves
+        eagerly at defer time, so the ledger commit after a delta tick
+        sees the post-round share)."""
         dev = 0
         if self._mat is not None:
             dev = self._mat.numel() * self._mat.element_size()
+        elif self.pool is not None:
+            dev = self.pool.doc_device_bytes(self)
         return dev + self.cols._cap * len(_Cols.INT_COLS) * 8
 
     @staticmethod
@@ -644,6 +670,10 @@ class IncrementalReplay:
         back to the exact blob path; while stashed or rootless rows
         are outstanding the fast path is skipped entirely (only the
         full pass retries them)."""
+        if self.pool is not None and self.pool.has_pending(self):
+            # deferred pooled round outstanding: the incremental splices
+            # below read winners/orders — settle first
+            self.pool.flush()
         if self._pending or self._rootless or not self._can_fast(recs):
             self.apply([v1.encode_update(list(recs), ds or DeleteSet())])
             return
@@ -1256,6 +1286,10 @@ class IncrementalReplay:
         """The plain-JSON view, flushed on read: rounds only mark
         touched segments dirty, so a replica that is never read pays
         no materialization (crdt.js's `c` equivalent)."""
+        if self.pool is not None and self.pool.has_pending(self):
+            # a deferred pooled round must settle before the rebuild
+            # reads winners/orders
+            self.pool.flush()
         if self._dirty:
             dirty, self._dirty = self._dirty, set()
             try:
@@ -1652,6 +1686,32 @@ class IncrementalReplay:
                 go_host = n_sel < thr
             if go_host:
                 host_segs.extend(dev_segs)
+                dev_segs = []
+
+        if dev_segs and self.pool is not None:
+            # pooled route: the device part of this round DEFERS — the
+            # pool's flush splices every warm doc's tail and converges
+            # all touched segments in ONE dispatch. Winners/orders of
+            # the deferred segments stay stale until that flush; every
+            # read path (cache, admit_local, the next apply) flushes
+            # first.
+            if self.pool.defer(self, dev_segs):
+                dev_segs = []
+            else:
+                # the pool budget refused the doc's extent
+                # (CRDT_TPU_MT_POOL_BYTES): permanent fallback to the
+                # private matrix. This round routes host-side (exact) —
+                # including anything the pool still held deferred — and
+                # the next device round re-splices the whole host column
+                # set into a fresh private matrix (n_dev=0).
+                pend = self.pool.take_pending(self)
+                self.pool.release(self)
+                self.pool = None
+                self._mat = None
+                self.n_dev = 0
+                self.pool_refusals += 1
+                get_tracer().count("tenant.pool_refusals")
+                host_segs.extend((set(dev_segs) | pend) - set(host_segs))
                 dev_segs = []
 
         if dev_segs:

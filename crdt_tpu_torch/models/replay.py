@@ -558,3 +558,56 @@ def _finish(dec: Dict, ds: DeleteSet, handle, device,
         cache=cache, snapshot=compact(dec, ds), n_ops=len(dec["client"]),
         path=path,
     )
+
+
+def cold_start(doc_name: str, persistence, snapshots=None,
+               *, pool=None, device="cuda"):
+    """Bring a doc up from durable state on ``device`` (the card unless
+    the caller asks for the CPU), preferring snapshot + WAL tail over a
+    full-history replay.
+
+    The recovery ladder, top rung first:
+
+    1. the newest valid snapshot generation (damage is counted and
+       skipped inside ``SnapshotStore.load_latest``) rehydrated into a
+       live engine, plus ``persistence.get_updates_since`` for the tail
+       the snapshot does not cover;
+    2. if the tail does not settle exactly (stashed/rootless rows — a
+       snapshot from a FOREIGN log, or coverage skew), counted
+       ``snap.fallbacks{reason="tail_stash"}`` and down one rung;
+    3. a full WAL replay through a fresh ``IncrementalReplay`` — the
+       byte-identical baseline every upper rung must match.
+
+    ``persistence`` is duck-typed (``get_updates_since(doc, seq)`` and
+    ``get_all_updates(doc)``). Returns ``(engine, path)`` with path in
+    {"snapshot", "wal"}."""
+    from crdt_tpu_torch.models.incremental import IncrementalReplay
+
+    tracer = get_tracer()
+    if snapshots is not None:
+        loaded = snapshots.load_latest(doc_name)
+        if loaded is not None:
+            from crdt_tpu_torch.storage import snapshot as snap_mod
+
+            snap, seq = loaded
+            eng = None
+            try:
+                eng = snap_mod.rehydrate(snap, pool=pool, device=device)
+                eng.apply(persistence.get_updates_since(doc_name, seq))
+            except ValueError:
+                if tracer.enabled:
+                    tracer.count("snap.fallbacks",
+                                 labels={"reason": "rehydrate"})
+            else:
+                if not (eng._pending or eng._rootless):
+                    return eng, "snapshot"
+                if tracer.enabled:
+                    tracer.count("snap.fallbacks",
+                                 labels={"reason": "tail_stash"})
+            # abandoned rung: give back any pooled registration
+            if eng is not None and eng.pool is not None:
+                eng.pool.release(eng)
+                eng.pool = None
+    eng = IncrementalReplay(pool=pool, device=device)
+    eng.apply(persistence.get_all_updates(doc_name))
+    return eng, "wal"

@@ -2,9 +2,11 @@
 reference package.
 
 The port's copies of ``bench.py:build_trace``,
-``bench.py:build_conflict_trace`` and ``bench.py:build_text_trace``:
-the same generators, seeds and record shapes, so a trace built here is
-byte-identical to the benchmark's (tests/test_torch_replay.py).
+``bench.py:build_conflict_trace``, ``bench.py:build_text_trace`` and the
+multi-tenant generators ``bench.py:build_doc_trace`` and
+``bench.py:_SteadyStream``: the same generators, seeds and record
+shapes, so a trace built here is byte-identical to the benchmark's
+(tests/test_torch_replay.py, tests/test_torch_multidoc.py).
 ``chip_smoke.py`` builds its inputs with these.
 """
 
@@ -148,3 +150,78 @@ def build_text_trace(R: int, K: int, seed: int = 3):
                 chain.append((client, k))
         blobs.append(v1.encode_update(recs, DeleteSet()))
     return blobs
+
+
+def build_doc_trace(n_small: int, ops_small: int, n_big: int,
+                    ops_big: int, seed: int = 17) -> dict:
+    """Mixed-tenant trace: ``n_small`` single-writer docs of
+    ``ops_small`` ops each (one map root + one list root + a few
+    tombstones — the idle-tenant shape that dominates a production
+    server's doc population) plus ``n_big`` multi-writer docs of
+    ``ops_big`` ops (the shared build_trace shape). Returns
+    ``{doc_id: [v1 update blobs]}``; doc ids sort small-docs-first."""
+    docs = {}
+    for i in range(n_small):
+        rng = np.random.default_rng(seed + i)
+        client = 1 + int(rng.integers(0, 1 << 20))
+        recs = []
+        chain: list = []
+        n_map = ops_small // 3
+        for k in range(n_map):
+            recs.append(ItemRecord(
+                client=client, clock=k, parent_root="m",
+                key=f"k{int(rng.integers(0, 24))}",
+                content=int(i * 31 + k),
+            ))
+        for k in range(n_map, ops_small):
+            recs.append(ItemRecord(
+                client=client, clock=k, parent_root="l",
+                origin=chain[-1] if chain else None,
+                content=int(i + k),
+            ))
+            chain.append((client, k))
+        ds = DeleteSet()
+        ds.add(client, n_map)
+        docs[f"t{i:05d}"] = [v1.encode_update(recs, ds)]
+    for j in range(n_big):
+        docs[f"zbig{j}"] = build_trace(
+            8, max(ops_big // 8, 1), seed=seed + 7000 + j
+        )
+    return docs
+
+
+class _SteadyStream:
+    """Single-writer doc generator whose every delta continues the
+    client's clock contiguously — the SV-admissible steady-state shape
+    the multi-tenant server's delta ticks serve (one map root + one
+    chained list root, the small-tenant mix of build_doc_trace)."""
+
+    def __init__(self, i: int):
+        self.client = 1 + i
+        self.i = i
+        self.k = 0
+        self.chain = None
+        self.map_tail: dict = {}
+
+    def delta(self, n_ops: int) -> bytes:
+        recs = []
+        for j in range(n_ops):
+            k = self.k
+            self.k += 1
+            if j % 4 == 0:
+                # a map set chains onto the key's previous value
+                # (origin = prior item), the Yjs Y.Map wire shape
+                key = f"k{(self.i + j) % 16}"
+                recs.append(ItemRecord(
+                    client=self.client, clock=k, parent_root="m",
+                    key=key, origin=self.map_tail.get(key),
+                    content=int(self.i * 31 + k),
+                ))
+                self.map_tail[key] = (self.client, k)
+            else:
+                recs.append(ItemRecord(
+                    client=self.client, clock=k, parent_root="l",
+                    origin=self.chain, content=int(self.i + k),
+                ))
+                self.chain = (self.client, k)
+        return v1.encode_update(recs, DeleteSet())

@@ -575,11 +575,227 @@ def _relabel_mat(mat: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 
 # running count of warm device-route converge dispatches (one per
-# `_splice_select_converge` round): a plain module int, the same
-# single-process pattern as the kernel wrappers' launch counts
+# `_splice_select_converge` round, one per pooled flush): a plain module
+# int, the same single-process pattern as the kernel wrappers' launch
+# counts
 device_dispatch_count = 0
 
 
 def count_device_dispatch(n: int = 1) -> None:
     global device_dispatch_count
     device_dispatch_count += n
+
+
+# ---------------------------------------------------------------------------
+# the POOLED resident matrix (the multi-tenant server's warm docs)
+# ---------------------------------------------------------------------------
+#
+# N warm docs co-located in ONE device allocation: rows carry their doc's
+# POOL SLOT as lane 7 and store doc-LOCAL dense client / parent ids, and
+# every dispatch composes DOC-COMPOSITE ids on the fly from per-slot base
+# offsets (disjoint composite ranges keep dedup, origin resolution and
+# segment numbering doc-local with no change to `_converge_core`). A doc
+# joining or growing its id table never relabels any OTHER doc's rows.
+# JAX donated the matrix to each of these functions; the port writes
+# into it in place, except `_pool_grow` and `_pool_compact`, which
+# return a new tensor.
+
+_POOL_FILL = (0, 0, 0, -1, -1, -1, 0, -1)  # an empty column, per lane
+
+
+def stage_pooled_delta(client, clock, pref, kid, oc, ock, slot,
+                       pos, kpad: int, pool_cap: int):
+    """Stage one POOLED round's delta: the ``[8, kpad]`` int64 block plus
+    the ``[kpad]`` int32 scatter positions
+    :func:`_pool_splice_select_converge` consumes. Rows 0-6 follow
+    :func:`stage_resident_delta` (doc-LOCAL dense ids), row 7 is the
+    doc's pool slot. Padding positions land at ``pool_cap`` and are
+    dropped by the splice; the touched-segment keys travel as their own
+    operand."""
+    k = len(client)
+    delta = np.zeros((8, kpad), np.int64)
+    delta[3:6, :] = -1
+    delta[7, :] = -1
+    pref = np.asarray(pref, np.int64)
+    delta[0, :k] = client
+    delta[1, :k] = clock
+    delta[2, :k] = np.maximum(pref, 0)
+    delta[3, :k] = kid
+    delta[4, :k] = oc
+    delta[5, :k] = ock
+    delta[6, :k] = pref >= 0
+    delta[7, :k] = slot
+    ppos = np.full(kpad, pool_cap, np.int32)
+    ppos[:k] = pos
+    return delta, ppos
+
+
+def _pool_splice(mat: torch.Tensor, delta8: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """``mat[:, pos] = delta8`` in place, DROPPING every column whose
+    position lies outside the matrix (the stager's ``pool_cap`` padding)
+    — JAX's ``mode="drop"`` scatter made explicit, with no host sync: a
+    kept column adds ``new - old`` at its own (distinct) position, which
+    is a set; a dropped one adds zero at column 0."""
+    cap = mat.shape[1]
+    keep = (pos >= 0) & (pos < cap)
+    idx = torch.where(keep, pos.long(), 0)
+    step = torch.where(keep, delta8.to(mat.dtype) - mat[:, idx], 0)
+    mat.index_add_(1, idx, step)
+
+
+def _pool_splice_body(mat, delta8, pos, touched_sorted, cbase, pbase, *,
+                      num_segments: int, sel_bucket: int, seq_bucket: int,
+                      rank_rounds: Optional[int] = None,
+                      map_rounds: Optional[int] = None) -> torch.Tensor:
+    """Shared body of the pooled splice+select+converge (see
+    :func:`_pool_splice_select_converge` for the contract). Splices
+    ``mat`` in place and returns the packed int32 result."""
+    _pool_splice(mat, delta8, pos)
+    live = mat[6] != 0
+    # the dead slot -1 maps to 0 here; the live mask zeroes its bases
+    slot = mat[7].clamp(0, cbase.shape[0] - 1)
+    cb = torch.where(live, cbase[slot], 0)
+    pb = torch.where(live, pbase[slot], 0)
+    # composite ids are int64 until the base is added; only then does
+    # the client narrow to int32, as in the reference
+    client = (mat[0] + cb).to(_I32)
+    clock = mat[1]
+    pref = mat[2] + pb
+    kid = mat[3].to(_I32)
+    oc0 = mat[4]
+    oc = torch.where(oc0 >= 0, oc0 + cb, oc0).to(_I32)
+    ock = mat[5]
+
+    segkey = segkey_of(pref, kid.to(torch.int64))
+    tpos = torch.searchsorted(touched_sorted, segkey)
+    tpos_c = tpos.clamp(0, touched_sorted.shape[0] - 1)
+    sel = live & (touched_sorted[tpos_c] == segkey)
+    skey = torch.where(sel, segkey, _I64_MAX)
+    sel_rows = torch.argsort(skey, stable=True)[:sel_bucket]
+    sub_valid = sel[sel_rows]
+    out = _converge_core(
+        client[sel_rows], clock[sel_rows], pref[sel_rows], kid[sel_rows],
+        oc[sel_rows], ock[sel_rows], sub_valid,
+        num_segments=num_segments, seq_bucket=seq_bucket,
+        rank_rounds=rank_rounds, map_rounds=map_rounds,
+    )
+    return torch.cat([out, torch.where(sub_valid, sel_rows, NULLI).to(_I32)])
+
+
+def _pool_splice_select_converge(mat, delta8, pos, touched_sorted,
+                                 cbase, pbase, *, num_segments: int,
+                                 sel_bucket: int, seq_bucket: int,
+                                 rank_rounds: Optional[int] = None,
+                                 map_rounds: Optional[int] = None):
+    """One warm dispatch for EVERY pooled doc's delta: scatter-splice the
+    combined delta block into the pooled matrix IN PLACE at the docs'
+    extent positions, compose doc-composite client / origin / parent ids
+    from the per-slot bases, select the rows of the touched COMPOSITE
+    segments, and re-converge that compact subset — the
+    :func:`_splice_select_converge` contract lifted from one doc to the
+    whole warm set. Returns ``(mat, [ out[S + 2B] | sel_rows[sel_bucket]
+    ])``; sel_rows are POOL positions (callers map back through their
+    extents).
+
+    ``touched_sorted`` must hold ascending composite segkeys
+    (``sk_local + (pbase[slot] << _KID_BITS)``, int64-max padded) and
+    ``cbase``/``pbase`` the per-slot id base offsets — disjoint ranges
+    per doc, so every cross-doc comparison inside `_converge_core` is
+    decided by the doc part of the key."""
+    out = _pool_splice_body(
+        mat, delta8, pos, touched_sorted, cbase, pbase,
+        num_segments=num_segments, sel_bucket=sel_bucket,
+        seq_bucket=seq_bucket, rank_rounds=rank_rounds,
+        map_rounds=map_rounds,
+    )
+    return mat, out
+
+
+def _pool_splice_select_converge_nodonate(mat, delta8, pos, touched_sorted,
+                                          cbase, pbase, **static):
+    """Twin of :func:`_pool_splice_select_converge` for repeat-dispatch
+    consumers (a probe re-driving one staged pool): same contract, on a
+    copy, so the input matrix is left as it was."""
+    return _pool_splice_select_converge(
+        mat.clone(), delta8, pos, touched_sorted, cbase, pbase, **static)
+
+
+def new_pool_mat(cap: int, device) -> torch.Tensor:
+    """An empty ``[8, cap]`` pooled matrix: every column the null
+    pattern (key-id, origin and slot lanes -1, the rest 0)."""
+    return torch.tensor(_POOL_FILL, dtype=torch.int64,
+                        device=device)[:, None].repeat(1, cap)
+
+
+def _pool_grow(mat: torch.Tensor, new_cap: int) -> torch.Tensor:
+    """Capacity growth for the POOLED matrix: a new tensor on the same
+    device with the old columns copied in."""
+    big = new_pool_mat(new_cap, mat.device)
+    big[:, :mat.shape[1]] = mat
+    return big
+
+
+def _check_window(mat: torch.Tensor, off: int, width: int,
+                  what: str) -> None:
+    """JAX clamps a ``dynamic_slice`` start whose window would run past
+    the end (and so shifts the window); torch slicing truncates. The
+    allocator keeps every window in bounds, so neither is copied: a
+    window out of bounds is a bug and raises."""
+    if off < 0 or off + width > mat.shape[1]:
+        raise ValueError(
+            f"pool {what} window [{off}, {off + width}) outside a matrix "
+            f"of {mat.shape[1]} columns"
+        )
+
+
+def _pool_kill(mat: torch.Tensor, off: int, width: int) -> torch.Tensor:
+    """Kill a released extent's columns (valid and slot lanes) in place
+    so an evicted doc's stale rows can never be selected — and a reused
+    slot can never alias them onto another doc's composite ids.
+    Idempotent."""
+    _check_window(mat, off, width, "kill")
+    mat[6, off:off + width] = 0
+    mat[7, off:off + width] = -1
+    return mat
+
+
+def _pool_move(mat: torch.Tensor, src_off: int, dst_off: int,
+               width: int) -> torch.Tensor:
+    """Relocate one doc's extent in place: copy the ``width`` columns at
+    ``src_off`` to ``dst_off``, then kill the old extent (valid and slot
+    lanes). The allocator guarantees the ranges never overlap (the
+    destination is fresh tail space)."""
+    _check_window(mat, src_off, width, "move source")
+    _check_window(mat, dst_off, width, "move destination")
+    mat[:, dst_off:dst_off + width] = mat[:, src_off:src_off + width].clone()
+    return _pool_kill(mat, src_off, width)
+
+
+def _pool_relabel_range(mat: torch.Tensor, perm: torch.Tensor, off: int,
+                        n: int) -> torch.Tensor:
+    """Per-DOC client relabel after a mid-table insertion, in place:
+    rewrite dense ids through ``perm`` over the doc's extent columns
+    ``[off, off+n)`` only — other docs' rows (doc-local id spaces) are
+    untouched. Both new rows are computed before either is written."""
+    perm = perm.to(device=mat.device, dtype=torch.int64)
+    top = perm.shape[0] - 1
+    win = mat[:, off:off + n]
+    cl = perm[win[0].clamp(0, top)]
+    oc = win[4]
+    oc = torch.where(oc >= 0, perm[oc.clamp(0, top)], oc)
+    win[0] = cl
+    win[4] = oc
+    return mat
+
+
+def _pool_compact(mat: torch.Tensor, src: torch.Tensor,
+                  keep: torch.Tensor) -> torch.Tensor:
+    """Bounded pool compaction (eviction holes): one device gather
+    through the host-computed ``src`` index array (new position -> old
+    position) into a NEW tensor; positions outside any live extent reset
+    to the null pattern. Both matrices are alive until the caller drops
+    the old one, so the card's peak is the sum of the two."""
+    out = mat[:, src.long()]
+    fill = torch.tensor(_POOL_FILL, dtype=mat.dtype, device=mat.device)
+    return torch.where(keep[None, :], out, fill[:, None])

@@ -594,8 +594,19 @@ class TestEngineSurface:
         rp.replay_trace(bench.build_trace(3, 4), route="host")
 
     def test_pool_is_not_ported_yet(self):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            IncrementalReplay(pool=object(), device="cpu")
+        # the pool is ported now: an engine attaches to a pool on its
+        # own device and refuses one on another
+        from crdt_tpu_torch.ops.resident import ResidentPool
+
+        pool = ResidentPool(device="cpu")
+        inc = IncrementalReplay(pool=pool, device="cpu")
+        assert inc.pool is pool and pool.doc_count() == 1
+
+        class _Elsewhere:
+            device = torch.device("meta")
+
+        with pytest.raises(ValueError, match="cannot attach"):
+            IncrementalReplay(pool=_Elsewhere(), device="cpu")
 
     def test_matrix_allocates_lazily(self):
         inc = IncrementalReplay(device_min_rows=0, device="cpu")
