@@ -61,8 +61,25 @@ JAX or of the reference package. Phases, each fatal on failure:
      dispatch a doc, and on the CPU, equal to each doc's own replay; 32
      warm docs of 32,768 ops through a pooled and an unpooled server,
      each pooled steady tick one pool dispatch and one ``stream_scatter``
-     launch against 32 unpooled; eviction to snapshots with rehydrate;
-     checkpoint, restore and ``cold_start``;
+     launch against 32 unpooled; eviction to snapshots with rehydrate
+     (the first ``EVICT_TICKS`` ticks); checkpoint, restore and
+     ``cold_start``;
+  11. the resident engine and the device merge (:func:`resident_phase`),
+     also before the timing: a wide-key union of 1000 writers x 2,600
+     ops (:func:`build_wide_key_trace`; 2.18M distinct map keys, past
+     the packed stager's 2^21 bound and no other) through
+     ``replay_trace`` on the resident engine ``ResidentColumns`` with
+     one ``ds_mask`` launch at N = 4,194,304, equal on the CPU, on the
+     stream route's ``"stream-fallback"``, with ``clients=`` and on
+     the packed route over two staged halves; the resident engine
+     equal to the packed device route at 1000 x 1600 byte for byte;
+     the device-merge swarms (12 x 25 card == CPU; 16 x 200 mixed on
+     ``LogPersistence`` logs, one replica restarted from its log)
+     equal to phase 8's scalar mode, each admitting round one rebuild
+     pass; a device-merge replica restarting from a native log of the
+     1000 x 100 trace in one ``apply_updates`` and one rebuild pass of
+     100,000 rows, equal to the cold device route and to the CPU, then
+     a remote batch rebuilding only the touched parents' rows;
   9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
@@ -80,8 +97,9 @@ The line before the last is the kernels JSON object, at the scale
 run's device-route and fleet-route shapes, the live replica's ingest
 shape (``"path": "incremental"``), replica A's load shape
 (``"path": "replica"``), the largest cold multi-tenant batch
-(``"path": "multidoc"``) and a steady pooled flush (``"path": "pool"``);
-the last line is
+(``"path": "multidoc"``), a steady pooled flush (``"path": "pool"``),
+and ``ds_mask`` on the resident engine (``"path": "resident"``) and in
+the device merge's rebuild (``"path": "device_merge"``); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -302,7 +320,7 @@ def main() -> int:
     from crdt_tpu_torch.models import traces
     from crdt_tpu_torch.obs import (TickTimeline, Tracer, set_timeline,
                                     set_tracer)
-    from crdt_tpu_torch.ops import _build, deleteset, kernels, statevec
+    from crdt_tpu_torch.ops import _build, deleteset, kernels, staging, statevec
     from crdt_tpu_torch.ops import packed as packed_mod
     from crdt_tpu_torch.parallel.delta import synth_resident_columns
 
@@ -607,7 +625,7 @@ def main() -> int:
     done("7 live replica")
 
     # ---- 8. the document API and the replica swarm ----------------------
-    rep_seen, rep_launches = replica_phase(
+    rep_seen, rep_launches, swarm_states = replica_phase(
         torch, kernels, packed_mod, blobs_of["scale_1000x1600"],
         json.dumps(device_results["scale_1000x1600"].cache, sort_keys=True),
         hold_kernel)
@@ -616,6 +634,13 @@ def main() -> int:
     # ---- 10. the multi-tenant server (before the timing, which it feeds)
     mt = multidoc_phase(torch, rp, traces, kernels, packed_mod, hold_kernel)
     done("10 multi-tenant server")
+
+    # ---- 11. the resident engine and the device merge (before the timing,
+    # which it feeds)
+    res11 = resident_phase(torch, rp, streaming, staging, kernels,
+                           deleteset, blobs_of, device_results, same,
+                           hold_kernel, swarm_states)
+    done("11 resident engine, device merge")
 
     # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
@@ -661,6 +686,18 @@ def main() -> int:
             r["path"] = path
         log(f"kernel times ({path}): " + json.dumps(rows))
         mt_rows += rows
+    # ... and ds_mask at phase 11's two new call sites: the resident
+    # engine's converge_maps on the wide-key union, and the device
+    # merge's rebuild of the 1000 x 100 restart
+    res_rows = []
+    for path, calls in (("resident", res11["wide"]),
+                        ("device_merge", res11["device_merge"])):
+        rows = kernel_rows(torch, kernels, {"ds_mask": calls[:1]},
+                           {"ds_mask": len(calls)}, max_err)
+        for r in rows:
+            r["path"] = path
+        log(f"kernel times ({path}): " + json.dumps(rows))
+        res_rows += rows
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -672,8 +709,8 @@ def main() -> int:
     log(f"seconds a phase: {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
-    print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows}),
-          flush=True)
+    print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows
+                      + res_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -932,6 +969,9 @@ WARM_DOCS = 32
 WARM_OPS = 32768
 WARM_DELTA = 64
 WARM_STEADY_TICKS = 4
+# the eviction step replays the first ticks only (cold, promotion, warm
+# delta, one steady), two half ticks each, for the run's time budget
+EVICT_TICKS = 4
 
 
 class _Log:
@@ -1228,7 +1268,7 @@ def multidoc_phase(torch, rp, traces, kernels, packed_mod,
                                    snap_store=SnapshotStore(tmp))
             tracer = set_tracer(Tracer(enabled=True))
             t0 = time.perf_counter()
-            for t, blobs in enumerate(ticks):
+            for t, blobs in enumerate(ticks[:EVICT_TICKS]):
                 for half in (0, 1):
                     for d, b in blobs.items():
                         if int(d[1:]) % 2 == half:
@@ -1243,7 +1283,7 @@ def multidoc_phase(torch, rp, traces, kernels, packed_mod,
             snap = {k: v for k, v in tracer.report()["counters"].items()
                     if k.startswith("snap.") or k.startswith("tenant.")}
             log(f"{label}: budget {budget} bytes (half of {warm_bytes}); "
-                f"{2 * len(ticks)} half ticks in {wall:.3f} s; resident peak "
+                f"{2 * EVICT_TICKS} half ticks in {wall:.3f} s; resident peak "
                 f"{third.resident_peak_bytes()}; counters {json.dumps(snap)}")
             detours = [k for k in tracer.report()["counters"]
                        if k.startswith(("snap.fallbacks", "device.",
@@ -1318,21 +1358,26 @@ def multidoc_phase(torch, rp, traces, kernels, packed_mod,
 
 
 def swarm_round(mode: str, n_reps: int, n_ops: int, mixed: bool = False,
-                device=None) -> tuple:
+                device=None, log_dir=None) -> tuple:
     """``bench.py``'s product swarm (``swarm_round``, bench.py:4670-4707)
     through the port's ``ypear_crdt`` over the loopback router: fixed
     client ids, batched receive, the plain op mix (map sets and list
     pushes) or the mixed one (maps, list appends, mid-inserts at a live
     index, nested array-in-map, delivery interleaved every 8 replicas).
-    Fails unless every replica's ``c`` is equal. Returns the replicas
-    and the wall seconds of the ops and their delivery."""
+    With ``log_dir``, replica ``i`` keeps its update log in
+    ``{log_dir}/{i}.kvlog`` (``LogPersistence``). Fails unless every
+    replica's ``c`` is equal. Returns the replicas and the wall seconds
+    of the ops and their delivery."""
     from crdt_tpu_torch.net import LoopbackNetwork, LoopbackRouter, ypear_crdt
+    from crdt_tpu_torch.storage import LogPersistence
 
     net = LoopbackNetwork()
-    kw = {"device": device} if mode == "resident" else {}
+    kw = {"device": device} if mode in ("resident", "device") else {}
     reps = [ypear_crdt(LoopbackRouter(net, f"pk{i}"), topic="b",
                        client_id=i + 1, merge_mode=mode,
-                       batch_incoming=True, **kw)
+                       batch_incoming=True,
+                       persistence=(LogPersistence(f"{log_dir}/{i}.kvlog")
+                                    if log_dir else None), **kw)
             for i in range(n_reps)]
     net.run()
     t0 = time.perf_counter()
@@ -1410,7 +1455,8 @@ def replica_phase(torch, kernels, packed_mod, scale_blobs, want_cache: str,
     the card ``stream_scatter`` launches once a big round (A, B, C) and
     nowhere else, no other kernel launches, and every ``device.*``
     ladder counter is 0; every scatter input equals the plain version.
-    Returns the scatter's inputs of A's load and its launch count."""
+    Returns the scatter's inputs of A's load, its launch count and the
+    swarms' final ``c`` by (replicas, mode, device)."""
     from crdt_tpu_torch.net import (LoopbackNetwork, LoopbackRouter,
                                     MemoryPersistence, ypear_crdt)
     from crdt_tpu_torch.obs import Tracer, set_tracer
@@ -1581,7 +1627,618 @@ def replica_phase(torch, kernels, packed_mod, scale_blobs, want_cache: str,
     log(f"{label}: launches {counts}; guard counters {json.dumps(guard)}; "
         f"stream_scatter == plain on all {len(calls)} inputs, (B, n_out) "
         f"{json.dumps([[int(p.shape[0]), n] for p, n in calls])}")
-    return calls[:1], counts["stream_scatter"]
+    return calls[:1], counts["stream_scatter"], states
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the resident engine and the device merge
+# ---------------------------------------------------------------------------
+
+# the wide-key union: writers x ops a writer, and the shared keys their
+# sixteenth ops set; 2,177,000 fresh keys put it past the packed
+# stager's 2^21 key bound
+WIDE_WRITERS = 1000
+WIDE_OPS = 2600
+WIDE_SHARED = 4096
+# the fresh writers of the remote batch after the 1000 x 100 restart
+RESTART_BATCH_WRITERS = 50
+
+
+def _prev_in_group(rows, groups):
+    """For rows (ascending clocks) and their group ids: each row's
+    previous row in its group, or -1."""
+    import numpy as np
+
+    order = np.lexsort((rows, groups))
+    g, rr = groups[order], rows[order]
+    prev = np.where(np.r_[False, g[1:] == g[:-1]], np.r_[-1, rr[:-1]], -1)
+    out = np.empty(len(rows), np.int64)
+    out[order] = prev
+    return out
+
+
+def build_wide_key_trace(n_writers: int = WIDE_WRITERS,
+                         n_ops: int = WIDE_OPS,
+                         n_shared: int = WIDE_SHARED, seed: int = 0):
+    """One v1 blob a writer, built from numpy columns by the port's
+    native encoder. Writer ``r`` (client ``r + 1``) emits ``n_ops`` ops;
+    op ``j`` is a push to list ``l{(r + j) % 8}`` chained to the
+    writer's previous push there when ``j % 10 == 9``, else, when
+    ``j % 16 == 0``, a set in root map ``m`` of a shared key ``s{h}``
+    (``h`` drawn from ``default_rng(seed)``) chained to the writer's
+    previous set of that key, else a set of the fresh key ``k{r}-{j}``.
+    Content is ``r * n_ops + j``; 5% of each writer's ops are deleted in
+    its blob's delete set, as in ``build_trace``."""
+    import numpy as np
+
+    from crdt_tpu_torch.codec import native
+    from crdt_tpu_torch.core.ids import DeleteSet
+    from crdt_tpu_torch.core.store import K_ANY
+
+    rng = np.random.default_rng(seed)
+    j = np.arange(n_ops, dtype=np.int64)
+    push = j % 10 == 9
+    shared = ~push & (j % 16 == 0)
+    fresh = ~push & ~shared
+    n_fresh = int(fresh.sum())
+    roots = ["m"] + [f"l{i}" for i in range(8)]
+    none = np.full(n_ops, -1, np.int64)
+    blobs = []
+    for r in range(n_writers):
+        client = r + 1
+        h = rng.integers(0, n_shared, int(shared.sum()))
+        lst = (r + j) % 8
+        ock = none.copy()
+        ock[push] = _prev_in_group(j[push], lst[push])
+        ock[shared] = _prev_in_group(j[shared], h)
+        uniq_h, h_inv = np.unique(h, return_inverse=True)
+        kid = np.full(n_ops, -1, np.int32)
+        kid[fresh] = np.arange(n_fresh)
+        kid[shared] = n_fresh + h_inv
+        dec = {
+            "client": np.full(n_ops, client, np.int64),
+            "clock": j,
+            "parent_root": np.where(push, 1 + lst, 0).astype(np.int32),
+            "parent_client": none,
+            "parent_clock": none,
+            "key_id": kid,
+            "origin_client": np.where(ock >= 0, client, -1),
+            "origin_clock": ock,
+            "right_client": none,
+            "right_clock": none,
+            "kind": np.full(n_ops, K_ANY, np.int32),
+            "type_ref": np.full(n_ops, -1, np.int32),
+            "contents": list(range(r * n_ops, (r + 1) * n_ops)),
+            "roots": roots,
+            "keys": [f"k{r}-{x}" for x in j[fresh].tolist()]
+            + [f"s{x}" for x in uniq_h.tolist()],
+        }
+        ds = DeleteSet()
+        for k in rng.choice(n_ops, size=max(1, n_ops // 20), replace=False):
+            ds.add(client, int(k))
+        blobs.append(native.encode_from_columns(dec, ds))
+    return blobs
+
+
+def split_union_by_writers(dec: dict, cols: dict) -> list:
+    """An independent answer for a union the packed stager refuses on
+    its key bound: two copies of the kernel columns, each clearing
+    ``valid`` on the fresh-key sets (keys ``k...``) of half the writers
+    and keeping every shared-key set, every push and the delete set,
+    with ``key_id`` re-densified over its valid rows. Each half stages
+    with about half the keys."""
+    import numpy as np
+
+    kid = np.asarray(cols["key_id"], np.int64)
+    is_fresh_key = np.asarray([k.startswith("k") for k in dec["keys"]],
+                              bool)
+    fresh = (kid >= 0) & is_fresh_key[np.clip(kid, 0, None)]
+    clients = np.unique(cols["client"])
+    upper = np.isin(cols["client"], clients[len(clients) // 2:])
+    halves = []
+    for drop in (upper, ~upper):
+        half = dict(cols)
+        valid = np.asarray(cols["valid"], bool) & ~(fresh & drop)
+        keyed = valid & (kid >= 0)
+        dense = kid.copy()
+        dense[keyed] = np.unique(kid[keyed], return_inverse=True)[1]
+        half["valid"] = valid
+        half["key_id"] = dense.astype(np.asarray(cols["key_id"]).dtype)
+        halves.append(half)
+    return halves
+
+
+def merge_half_caches(a: dict, b: dict, root: str = "m") -> dict:
+    """The two halves' caches as one: their ``root`` maps are disjoint
+    on fresh keys and equal on shared ones, every other root equal."""
+    shared = set(a[root]) & set(b[root])
+    if any(not k.startswith("s") or a[root][k] != b[root][k]
+           for k in shared):
+        raise AssertionError("halves disagree on a shared key or share "
+                             "a fresh one")
+    if {k: v for k, v in a.items() if k != root} != \
+            {k: v for k, v in b.items() if k != root}:
+        raise AssertionError("halves disagree outside the map")
+    out = dict(a)
+    out[root] = {**a[root], **b[root]}
+    return out
+
+
+@contextmanager
+def timing(secs: dict, *sites):
+    """Charge the wall seconds of each call of the functions named by
+    ``sites`` — (module or class, attribute, label) triples — to
+    ``secs[label]``; ``secs[label + " calls"]`` counts the calls and
+    ``secs[label + " out"]`` keeps the last result."""
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in sites]
+
+    def timed_call(fn, label, static):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            secs[label] = secs.get(label, 0.0) + time.perf_counter() - t0
+            secs[label + " calls"] = secs.get(label + " calls", 0) + 1
+            secs[label + " out"] = out
+            return out
+        return staticmethod(call) if static else call
+
+    for (obj, name, fn), (_, _, label) in zip(originals, sites):
+        static = isinstance(obj, type) and isinstance(
+            obj.__dict__.get(name), staticmethod)
+        setattr(obj, name, timed_call(fn, label, static))
+    try:
+        yield
+    finally:
+        for obj, name, fn in originals:
+            if isinstance(obj, type) and isinstance(
+                    obj.__dict__.get(name), staticmethod):
+                setattr(obj, name, staticmethod(fn))
+            else:
+                setattr(obj, name, fn)
+
+
+def resident_phase(torch, rp, streaming, staging, kernels, deleteset,
+                   blobs_of, device_results, same, hold_kernel,
+                   scalar_states: dict, device: str = "cuda",
+                   wide=(WIDE_WRITERS, WIDE_OPS, WIDE_SHARED)) -> dict:
+    """Phase 11, the resident engine and the device merge on ``device``:
+
+    1. the wide-key union (:func:`build_wide_key_trace`): the packed
+       stager refuses it on its key bound alone; ``replay_trace``
+       converges it through ``ResidentColumns`` with one ``ds_mask``
+       launch at the resident capacity and no other kernel; the CPU,
+       the stream route's ``"stream-fallback"`` and ``clients=`` give
+       the same cache and snapshot; and so does the packed route over
+       two staged halves (:func:`split_union_by_writers`);
+    2. the resident engine against the packed one on the 1000 x 1600
+       union: ``_converge_resident``'s gather, materialize and compact
+       equal phase 4's device route byte for byte, one ``ds_mask``
+       launch; once more under ``set_sync_debug_mode("warn")``;
+    3. the device merge through the product (:func:`device_merge_checks`),
+       held against phase 8's scalar swarms (``scalar_states``).
+
+    Every kernel input is held against its plain version, and the
+    guard ladder must not climb. Returns the ``ds_mask`` inputs of the
+    wide-key union's device route and of the 1000 x 100 restart."""
+    import numpy as np
+
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+
+    label = f"resident [{device}]"
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tracer = set_tracer(Tracer(enabled=True))
+    out: dict = {}
+
+    def run(fn, *, what: str, ds_mask=0, packed=0, dev=device):
+        """``fn()`` with every count zeroed just before and read just
+        after: on the card ``ds_mask`` launches (a number, or a callable
+        read after the run), ``packed`` launches of each of the packed
+        route's two kernels and no other kernel; on the CPU none. Each
+        ``ds_mask`` input is held against the plain version. Returns
+        ``fn()``'s result and those inputs."""
+        seen: dict = {}
+        card = torch.device(dev).type == "cuda"
+        sync()
+        kernels.reset_launches()
+        with capture_kernel_inputs(seen, (deleteset, "ds_mask")):
+            res = fn()
+        sync()
+        counts = kernels.launch_counts()
+        want = {name: 0 for name in counts}
+        if card:
+            want["ds_mask"] = ds_mask() if callable(ds_mask) else ds_mask
+            want["seg_argmax_scan"] = want["stream_scatter"] = packed
+        if counts != want:
+            raise AssertionError(f"{label} {what} [{dev}]: launches "
+                                 f"{counts}, want {want}")
+        calls = seen.get("ds_mask", [])
+        if card:
+            for args in calls:
+                hold_kernel("ds_mask", *args)
+        return res, calls
+
+    # ---- 1. the wide-key union
+    secs: dict = {}
+    t0 = time.perf_counter()
+    blobs = build_wide_key_trace(*wide)
+    secs["build"] = time.perf_counter() - t0
+    tr_secs: dict = {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with timing(tr_secs, (rp, "_converge_resident", "_converge_resident"),
+                (staging, "stage", "stage refusal"), (rp, "decode", "dec")):
+        card, wide_seen = run(lambda: rp.replay_trace(blobs, device=device),
+                              ds_mask=1, what="wide-key device route")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    rc, dec = tr_secs["_converge_resident out"][0], tr_secs["dec out"]
+    # why the stager refused the run's union: its key bound alone
+    cols, ds = rp.stage(dec)
+    valid = np.asarray(cols["valid"], bool)
+    kid_max = int(cols["key_id"][valid].max())
+    n_parents = len(np.unique(np.stack(
+        [cols["parent_is_root"].astype(np.int64), cols["parent_a"],
+         cols["parent_b"]]), axis=1))
+    clock_max = int(cols["clock"][valid].max())
+    key_bound = 1 << staging._KID_BITS  # 2^21
+    if not (tr_secs["stage refusal out"] is None and kid_max >= key_bound
+            and len(dec["keys"]) > kid_max and n_parents < 1 << 25
+            and clock_max < 1 << 40):
+        raise AssertionError(
+            f"{label}: the union is not refused on its key bound alone "
+            f"(key ids to {kid_max}, {n_parents} parents, clocks to "
+            f"{clock_max})")
+    log(f"{label}: wide-key union of {len(blobs)} blobs, "
+        f"{len(dec['client'])} rows, {len(dec['keys'])} distinct keys "
+        f"(largest key id {kid_max} >= {key_bound}), {n_parents} parents, "
+        f"clocks below {clock_max + 1}: the packed stager refuses it")
+    n = wide_seen[0][0].numel() if wide_seen else rc.capacity
+    if card.path != "device" or rc.device.type != device or \
+            n != rc.capacity:
+        raise AssertionError(
+            f"{label}: path {card.path} on {rc.device}, ds_mask N {n} "
+            f"for capacity {rc.capacity}")
+    spans = {k: round(v["total_s"], 6) for k, v in
+             tracer.report()["spans"].items()
+             if k in ("decode", "gather", "materialize", "compact")}
+    log(f"{label}: wide-key device route {json.dumps(spans)}, stage "
+        f"refusal {tr_secs['stage refusal']:.6f} s, _converge_resident "
+        f"{tr_secs['_converge_resident']:.6f} s; capacity {rc.capacity}, "
+        f"rc.device_bytes() {rc.device_bytes()}, max_memory_allocated "
+        f"{peak}; ds_mask launches 1 at N {n}, D "
+        f"{wide_seen[0][3].numel() if wide_seen else 16}")
+    out["wide"] = wide_seen[:1]
+    del rc, tr_secs
+
+    if on_card:
+        t0 = time.perf_counter()
+        cpu = rp.replay_trace(blobs, device="cpu")
+        secs["CPU replay"] = time.perf_counter() - t0
+        same(label, card, cpu, "wide-key union, card vs CPU")
+    phases: dict = {}
+    t0 = time.perf_counter()
+    stream, _ = run(lambda: streaming.stream_replay(
+        blobs, device=device, phases=phases), ds_mask=1,
+        what="stream fallback")
+    secs["stream route"] = time.perf_counter() - t0
+    if stream.path != "stream-fallback" or phases.get("fallback") is not True:
+        raise AssertionError(f"{label}: stream route took {stream.path}")
+    same(label, stream, card, "wide-key union, stream-fallback vs device")
+    ids = sorted(set(int(c) for c in dec["client"]))
+    t0 = time.perf_counter()
+    seeded, _ = run(lambda: rp.replay_trace(blobs, clients=ids,
+                                            device=device),
+                    ds_mask=1, what="clients=")
+    secs["clients= route"] = time.perf_counter() - t0
+    same(label, seeded, card, "wide-key union, clients= vs device")
+
+    t0 = time.perf_counter()
+    halves = []
+    for i, half in enumerate(split_union_by_writers(dec, cols)):
+        if staging.stage(half) is None:
+            raise AssertionError(f"{label}: half {i} does not stage")
+        res, _ = run(lambda: rp.converge(half, device=device),
+                     packed=1, what=f"half {i} (packed route)")
+        if res[0] != "packed":
+            raise AssertionError(f"{label}: half {i} took {res[0]}")
+        w, v, o = rp.gather(dec, ds, res, device=device)
+        halves.append(rp.materialize(dec, ds, w, v, o))
+    merged = merge_half_caches(*halves)
+    secs["two packed halves"] = time.perf_counter() - t0
+    if json.dumps(merged, sort_keys=True) != json.dumps(card.cache,
+                                                        sort_keys=True):
+        raise AssertionError(f"{label}: the two packed halves != the "
+                             "resident engine")
+    log(f"{label}: wide-key union equal on the CPU, the stream route "
+        "(stream-fallback), clients= and the packed route over two "
+        f"staged halves ({len(halves[0]['m'])} and {len(halves[1]['m'])} "
+        f"visible keys); seconds {json.dumps(secs)}")
+    del blobs, dec, cols, halves, merged, card, stream, seeded
+
+    # ---- 2. the resident engine against the packed one at 1000 x 1600
+    big = "scale_1000x1600"
+    dec = rp.decode(blobs_of[big])
+    cols, ds = rp.stage(dec)
+
+    def resident_replay():
+        res = rp._converge_resident(cols, None, device=device)
+        w, v, o = rp.gather(dec, ds, ("resident", res), device=device)
+        return res[0], rp.materialize(dec, ds, w, v, o)
+
+    t0 = time.perf_counter()
+    (rc, cache), seen = run(resident_replay, ds_mask=1,
+                            what="1000x1600 resident")
+    wall = time.perf_counter() - t0
+    snap = rp.compact(dec, ds)
+    want = device_results[big]
+    if json.dumps(cache, sort_keys=True) != json.dumps(
+            want.cache, sort_keys=True) or snap != want.snapshot:
+        raise AssertionError(f"{label}: resident engine != packed device "
+                             "route at 1000x1600")
+    n = seen[0][0].numel() if seen else rc.capacity
+    log(f"{label}: 1000x1600 on the resident engine == the packed device "
+        f"route byte for byte (cache and snapshot); {wall:.3f} s "
+        f"converge + gather + materialize, capacity {rc.capacity}, "
+        f"ds_mask N {n}")
+    if on_card:
+        syncs = sync_warnings(torch, resident_replay)
+        log(f"{label}: host syncs of one resident converge + gather "
+            f"(set_sync_debug_mode warn): {json.dumps(syncs)}")
+    del dec, cols, rc, cache
+
+    # ---- 3. the device merge through the product
+    out["device_merge"] = device_merge_checks(
+        torch, rp, blobs_of, device_results, scalar_states, run, label,
+        device)
+    guard = {k: v for k, v in tracer.report()["counters"].items()
+             if k.startswith("device.")}
+    set_tracer(Tracer(enabled=False))
+    if any(guard.values()):
+        raise AssertionError(f"{label}: the failure ladder ran: {guard}")
+    return out
+
+
+
+def _rebuild_spy(device_apply, calls: list):
+    """Patch ``device_apply._rebuild_kernel`` to record, for each
+    kernel rebuild pass, its row count, whether a map row is among them
+    (only then does ``converge_maps``, and with it ``ds_mask``, run) and
+    its device; returns the original, to restore."""
+    import numpy as np
+
+    from crdt_tpu_torch.core.store import K_GC, NO_KEY
+
+    orig = device_apply._rebuild_kernel
+
+    def spy(engine, sids, device):
+        st = engine._device_rebuild_state
+        rows = np.asarray([r for sid in sids for r in st["spec_rows"][sid]],
+                          np.int64)
+        s = engine.store
+        has_map = bool(((s.key_id[rows] != NO_KEY)
+                        & (s.kind[rows] != K_GC)).any())
+        calls.append((len(rows), has_map, device.type))
+        return orig(engine, sids, device)
+
+    device_apply._rebuild_kernel = spy
+    return orig
+
+
+def _admitting_rounds(device_apply, rounds: list):
+    """Patch ``device_apply.apply_records_device`` to count the remote
+    rounds that admitted rows; returns the original, to restore."""
+    orig = device_apply.apply_records_device
+
+    def spy(engine, records, delete_set=None, *, device):
+        n0 = engine.store.n
+        orig(engine, records, delete_set, device=device)
+        if engine.store.n > n0:
+            rounds.append(engine.store.n - n0)
+
+    device_apply.apply_records_device = spy
+    return orig
+
+
+def device_merge_checks(torch, rp, blobs_of, device_results,
+                        scalar_states, run, label, device) -> list:
+    """Phase 11's device merge (``Crdt(device_merge=True)`` under
+    ``ypear_crdt(merge_mode="device")``) on ``device``:
+
+    a. ``bench.py``'s product swarm at 12 x 25 in device mode, on
+       ``device`` and on the CPU: equal to phase 8's scalar mode
+       (``scalar_states``, by (replicas, mode, device)), every replica's
+       full state equal card to CPU byte for byte; every remote round
+       that admitted rows is one ``engine.rebuild`` kernel pass, with
+       one ``ds_mask`` launch when its rows include a map row;
+    b. BASELINE #3, the mixed swarm at 16 x 200, each replica on its
+       own ``LogPersistence``: equal to scalar mode; a replica closed
+       and restarted from its log in device mode keeps its cache;
+    c. BASELINE #5 at its stated size: a device-merge replica restarts
+       from a ``LogPersistence`` log of the 1000 x 100 trace in one
+       ``apply_updates``, one rebuild pass over 100,000 rows and one
+       ``ds_mask`` launch; its cache equals phase 4's device route, its
+       full state replays to the same cache, and the same restart on
+       the CPU encodes the same bytes. Then 100 local edits and one
+       remote batch of 50 fresh map writers: that rebuild selects only
+       the touched maps' rows.
+
+    Returns the ``ds_mask`` inputs of the restart's rebuild."""
+    import tempfile
+
+    from crdt_tpu_torch.api.doc import Crdt
+    from crdt_tpu_torch.core import device_apply
+    from crdt_tpu_torch.models import traces
+    from crdt_tpu_torch.net import (LoopbackNetwork, LoopbackRouter,
+                                    ypear_crdt)
+    from crdt_tpu_torch.obs import get_tracer
+    from crdt_tpu_torch.storage import LogPersistence
+
+    dev_type = torch.device(device).type
+    walls: dict = {}
+    passes: list = []
+    rounds: list = []
+    spies = (_rebuild_spy(device_apply, passes),
+             _admitting_rounds(device_apply, rounds))
+
+    def counted(what, fn, dev):
+        """``fn()`` with its rebuild passes and admitting rounds: one
+        pass a round, on ``dev``, and on the card one ``ds_mask`` launch
+        a pass with map rows."""
+        passes.clear()
+        rounds.clear()
+        res, seen = run(fn, what=what, dev=dev, ds_mask=lambda: sum(
+            has_map for _, has_map, _ in passes))
+        if len(passes) != len(rounds) or any(
+                d != torch.device(dev).type for _, _, d in passes):
+            raise AssertionError(
+                f"{label} {what}: {len(rounds)} admitting rounds, "
+                f"{len(passes)} rebuild passes on {set(passes)}")
+        log(f"{label} {what} [{dev}]: {len(rounds)} admitting rounds, "
+            f"one rebuild pass each, {sum(p[1] for p in passes)} with map "
+            f"rows (rows a pass {sorted(p[0] for p in passes)[-3:]} at "
+            "most)")
+        return res, seen
+
+    try:
+        # ---- a. the product swarm at 12 x 25
+        (n_small, k_small), (n_mixed, k_mixed) = SWARMS
+        reps = {}
+        for dev in (device, "cpu"):
+            (reps[dev], walls[f"12x25 device {dev}"]), _ = counted(
+                f"12x25 swarm", lambda: swarm_round(
+                    "device", n_small, k_small, device=dev), dev)
+        want = scalar_states[(n_small, "scalar", None)]
+        for dev, rs in reps.items():
+            if any(dict(r.c) != want for r in rs):
+                raise AssertionError(f"{label}: 12x25 device [{dev}] != "
+                                     "scalar")
+        for a, b in zip(reps[device], reps["cpu"]):
+            if a.encode_state_as_update() != b.encode_state_as_update():
+                raise AssertionError(f"{label}: 12x25 device merge, card "
+                                     "!= CPU")
+
+        # ---- b. BASELINE #3: the mixed swarm on native logs
+        with tempfile.TemporaryDirectory() as tmp:
+            (mixed, walls["16x200 mixed device"]), _ = counted(
+                "16x200 mixed swarm", lambda: swarm_round(
+                    "device", n_mixed, k_mixed, mixed=True, device=device,
+                    log_dir=tmp), device)
+            if dict(mixed[0].c) != \
+                    scalar_states[(n_mixed, "scalar", None)]:
+                raise AssertionError(f"{label}: 16x200 device != scalar")
+            before = dict(mixed[5].c)
+            for r in mixed:
+                r.self_close()
+            t0 = time.perf_counter()
+            (back, _), _ = counted("16x200 restart", lambda: (ypear_crdt(
+                LoopbackRouter(LoopbackNetwork(), "back"), topic="b",
+                merge_mode="device", device=device,
+                persistence=LogPersistence(f"{tmp}/5.kvlog")), None),
+                device)
+            walls["16x200 restart from its log"] = time.perf_counter() - t0
+            if dict(back.c) != before:
+                raise AssertionError(f"{label}: restart from its log "
+                                     "lost state")
+            back.self_close()
+        log(f"{label}: device-merge swarms == scalar (12x25 card == CPU "
+            "byte for byte; 16x200 mixed on native logs, and a replica "
+            f"restarted from its log); wall s {json.dumps(walls)}")
+
+        # ---- c. BASELINE #5: restart from a 1000 x 100 native log
+        small = "trace_1000x100"
+        blobs = blobs_of[small]
+        with tempfile.TemporaryDirectory() as tmp:
+            log_path = f"{tmp}/doc.kvlog"
+            store = LogPersistence(log_path)
+            store.store_updates("doc", blobs)
+            store.close()
+            restarts = {}
+            for dev in (device, "cpu"):
+                secs: dict = {}
+                tracer = get_tracer()
+                s0 = {k: v["total_s"] for k, v in
+                      tracer.report()["spans"].items()}
+                with timing(secs, (LogPersistence, "get_all_updates",
+                                   "log read"),
+                            (Crdt, "_decode_batch", "decode"),
+                            (Crdt, "_refresh_cache", "cache refresh"),
+                            (Crdt, "apply_updates", "apply_updates")):
+                    t0 = time.perf_counter()
+                    (r, _), seen = counted("1000x100 restart", lambda: (
+                        ypear_crdt(LoopbackRouter(LoopbackNetwork(), "D"),
+                                   topic="doc", merge_mode="device",
+                                   device=dev,
+                                   persistence=LogPersistence(log_path)),
+                        None), dev)
+                    wall = time.perf_counter() - t0
+                split = {k: round(secs[k], 6) for k in (
+                    "log read", "decode", "cache refresh", "apply_updates")}
+                split.update({k[len("device_merge."):]: round(
+                    v["total_s"] - s0.get(k, 0.0), 6) for k, v in
+                    tracer.report()["spans"].items()
+                    if k.startswith("device_merge.")})
+                pad = len(blobs) * 100
+                pad = 1 << (pad - 1).bit_length()
+                if secs["apply_updates calls"] != 1 or passes != [
+                        (len(blobs) * 100, True, torch.device(dev).type)] \
+                        or any(args[0].numel() != pad for args in seen):
+                    raise AssertionError(
+                        f"{label}: restart took {secs['apply_updates calls']}"
+                        f" apply_updates and passes {passes}")
+                restarts[dev] = r
+                if dev == device:
+                    restart_seen = seen
+                log(f"{label}: 1000x100 restart [{dev}] from a native log "
+                    f"of {len(blobs)} updates in {wall:.3f} s, one "
+                    f"apply_updates, one rebuild pass over {passes[0][0]} "
+                    f"rows; split s {json.dumps(split)}")
+        r = restarts[device]
+        want = device_results[small]
+        if json.dumps(dict(r.c), sort_keys=True) != json.dumps(
+                want.cache, sort_keys=True):
+            raise AssertionError(f"{label}: restart != cold device route")
+        full = r.encode_state_as_update()
+        if full != restarts["cpu"].encode_state_as_update():
+            raise AssertionError(f"{label}: restart, card != CPU")
+        again = rp.replay_trace([full], device=device)
+        if json.dumps(again.cache, sort_keys=True) != json.dumps(
+                want.cache, sort_keys=True):
+            raise AssertionError(f"{label}: the restart's full state "
+                                 "replays to another cache")
+
+        # edits, then a remote batch of fresh writers on the maps only
+        for n in range(2):
+            mixed_ops(r, 0, 50, start=50 * n)
+        batch = traces.build_trace(RESTART_BATCH_WRITERS, 100, seed=9,
+                                   client_base=10_000, map_frac=1.0)
+        eng = r.doc.engine
+        n0 = eng.store.n
+        # rows since the last rebuild: the local edits' and the batch's
+        since = eng._device_rebuild_state["len"]
+        t0 = time.perf_counter()
+        syncs, _ = counted("remote batch", lambda: sync_warnings(
+            torch, lambda: r.doc.apply_updates(batch)) if dev_type == "cuda"
+            else r.doc.apply_updates(batch), device)
+        wall = time.perf_counter() - t0
+        touched = {eng._parent_spec_of_row(i)
+                   for i in range(since, eng.store.n)}
+        want_m = sum(1 for i in range(eng.store.n)
+                     if eng._parent_spec_of_row(i) in touched)
+        if [p[0] for p in passes] != [want_m] or want_m >= eng.store.n:
+            raise AssertionError(f"{label}: remote batch rebuilt "
+                                 f"{passes} rows, want {want_m}")
+        log(f"{label}: 100 local edits ({n0 - since} rows), then a remote "
+            f"batch of {len(batch)} writers ({eng.store.n - n0} rows) in "
+            f"{wall:.3f} s: one rebuild pass over m = {want_m} rows, those "
+            f"of the {len(touched)} parents with rows since the last "
+            f"rebuild, of the doc's {eng.store.n}; host syncs of the "
+            f"merge (set_sync_debug_mode warn): {json.dumps(syncs)}")
+        for x in restarts.values():
+            x.self_close()
+    finally:
+        device_apply._rebuild_kernel, device_apply.apply_records_device = \
+            spies
+    return restart_seen
 
 
 def sync_warnings(torch, run) -> dict:

@@ -3,9 +3,9 @@
 The port's copy of ``crdt_tpu.api.doc``: the same ops over the port's
 scalar :class:`crdt_tpu_torch.core.engine.Engine`, emitting the same
 update blobs byte for byte. Merges run on the host engine, as the
-reference's scalar mode does; the reference's ``device_merge=True``
-(``core.device_apply``, a kernel rebuild of the engine's chains) is not
-ported yet, and asking for it raises (:data:`DEVICE_MERGE_ITEM`).
+reference's scalar mode does, or, with ``device_merge=True``, admit on
+the host and rebuild the touched chains with the kernels on ``device``
+(:mod:`crdt_tpu_torch.core.device_apply`).
 
 Reproduces the op layer and friendly API of the reference library
 (``crdt.js:325-702``): named map/array collections over one shared
@@ -51,13 +51,6 @@ from crdt_tpu_torch.core.store import NO_KEY, NULL, TYPE_ARRAY
 RESERVED_NAMES = ("ix", "doc")
 
 ARRAY_METHODS = ("insert", "push", "unshift", "cut")
-
-# where the engine-backed device merge (the reference's
-# core.device_apply) is queued
-DEVICE_MERGE_ITEM = (
-    "ROADMAP.md queue A item 7 (resident full-converge and engine rebuild)"
-)
-
 
 class ReservedNameError(ValueError):
     pass
@@ -183,9 +176,11 @@ class Crdt(DocOpsMixin):
     - ``observer_function(event)`` — the reference's coarse observer
       (crdt.js:308-310), fired with a dict carrying the frozen cache.
 
-    ``device_merge=True`` raises ``NotImplementedError`` here, at
-    construction: its merges would otherwise go down the host engine
-    without a word.
+    ``device_merge=True`` routes every remote batch through the
+    kernel rebuild on ``device`` (the card unless the caller asks for
+    the CPU; resolved at construction, so without a card it raises
+    there). ``device_merge=False`` (or None) keeps the host engine and
+    takes no device.
     """
 
     def __init__(
@@ -196,19 +191,19 @@ class Crdt(DocOpsMixin):
         on_update: Optional[Callable[[bytes, dict], None]] = None,
         full_state_updates: bool = False,
         device_merge: Optional[bool] = None,
+        device="cuda",
     ):
         # CRDT_TPU_DEVICE is a PRODUCT-level knob consumed by the
         # replica layer, where it selects merge_mode="resident"
         # (net/replica.py). The standalone Crdt keeps the engine device
         # gate strictly explicit — one env var must not mean different
         # things at different layers.
-        if device_merge:
-            raise NotImplementedError(
-                f"Crdt(device_merge=True) is not ported yet "
-                f"({DEVICE_MERGE_ITEM}); merges run on the host engine "
-                "with device_merge=False"
-            )
-        self.device_merge = False
+        self.device_merge = bool(device_merge)
+        self.device = None
+        if self.device_merge:
+            from crdt_tpu_torch.ops.device import resolve_device
+
+            self.device = resolve_device(device)
         self.engine = Engine(client_id)
         self.observer_function = observer_function
         self.on_update = on_update
@@ -605,14 +600,23 @@ class Crdt(DocOpsMixin):
 
         This is the buffering gate of the north star: a sync backlog,
         a persistence log replay, or a gossip round's worth of updates
-        decodes into one record union and pays one integration pass on
-        the host engine, replacing the reference's per-update scalar
-        loop (crdt.js:294).
+        decodes into one record union and pays one integration pass —
+        and in device mode (``device_merge=True``) that pass admits on
+        the host and rebuilds the touched chains with the kernels
+        (``converge_maps`` + ``tree_order_ranks``, see
+        :mod:`crdt_tpu_torch.core.device_apply`), replacing the
+        reference's per-update scalar loop (crdt.js:294).
         """
         if not datas:
             return
         all_records, all_ds = self._decode_batch(datas)
-        self.engine.apply_records(all_records, all_ds)  # own txn
+        if self.device_merge:
+            from crdt_tpu_torch.core.device_apply import apply_records_device
+
+            apply_records_device(self.engine, all_records, all_ds,
+                                 device=self.device)
+        else:
+            self.engine.apply_records(all_records, all_ds)  # own txn
         touched, touched_keys = self._touched_roots()
         self._refresh_cache(touched, touched_keys)  # + D3 backfill
         self._fire_observers(touched, touched_keys, origin)

@@ -10,7 +10,11 @@ sync backlog) end to end:
   2. stage: the packed section layout on the host, in numpy
      (:mod:`crdt_tpu_torch.ops.staging`);
   3. converge: one upload, one launch sequence (both hand-written
-     kernels), one fetch (:mod:`crdt_tpu_torch.ops.packed`);
+     kernels), one fetch (:mod:`crdt_tpu_torch.ops.packed`); a union
+     past the packed stager's bounds (2^25 parents, 2^21 map keys,
+     clocks of 2^40) converges instead on the general resident engine
+     (:class:`crdt_tpu_torch.ops.resident.ResidentColumns`, whose map
+     merge runs the ``ds_mask`` kernel), with one sync at its end;
   4. gather + materialize: winner rows and document orders -> the
      plain-JSON ``crdt.c`` cache, tombstones applied;
   5. compact: one snapshot blob (the log squashed).
@@ -30,22 +34,21 @@ Shapes the packed kernels cannot express take the scalar host
 machinery (:mod:`crdt_tpu_torch.ops.yata`, through
 :class:`crdt_tpu_torch.core.engine.Engine`) at gather time: segments
 the stager marks hard, map rows that carry right origins, and (on the
-fleet route, whose kernels ignore right origins) every parent with a
-right-bearing sequence row.
+fleet route and the resident engine, whose kernels ignore right
+origins) every parent with a right-bearing sequence row.
 
 Cache and snapshot are byte-identical to the reference's on the same
 blobs (tests/test_torch_replay.py, tests/test_torch_fleet.py,
-tests/test_torch_streaming.py). A union the packed stager cannot
-express raises ``NotImplementedError`` naming its ROADMAP.md item
-instead of giving a wrong answer.
+tests/test_torch_streaming.py, tests/test_torch_resident.py).
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from crdt_tpu_torch.codec import native
 from crdt_tpu_torch.core.ids import DeleteSet
@@ -53,20 +56,13 @@ from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_GC, K_TYPE, TYPE_MAP
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed, staging
-from crdt_tpu_torch.ops.device import resolve_device, xfer_put
+from crdt_tpu_torch.ops.device import (
+    bucket_pow2,
+    fetch_packed_i32,
+    resolve_device,
+    xfer_put,
+)
 from crdt_tpu_torch.ops.yata import order_hard_segment, order_sequences
-
-# where the missing fallback for unstageable unions is queued
-_UNSTAGEABLE_ITEM = "ROADMAP.md queue A item 7 (ResidentColumns)"
-
-
-def unstageable_union() -> NotImplementedError:
-    """The error every route raises for a union past the packed
-    stager's bounds (the reference's resident fallback)."""
-    return NotImplementedError(
-        "union exceeds the packed stager's bounds; the resident "
-        f"fallback is not ported yet ({_UNSTAGEABLE_ITEM})"
-    )
 
 
 class ReplayResult(NamedTuple):
@@ -90,23 +86,56 @@ def stage(dec: Dict) -> Tuple[Dict[str, np.ndarray], DeleteSet]:
     return native.kernel_columns(dec), native.ds_from_triples(dec["ds"])
 
 
-def converge(cols: Dict[str, np.ndarray], *, device="cuda"):
+def converge(cols: Dict[str, np.ndarray], *,
+             clients: Optional[Sequence[int]] = None, device="cuda"):
     """One union convergence on ``device``. Returns an opaque handle
     for :func:`gather`.
 
-    The packed pipeline: stage on the host, one upload, one launch
-    sequence, one fetch. Above ``EAGER_PUT_MIN_ROWS`` rows each staged
-    section group starts its asynchronous upload as soon as its layout
-    pass completes (``stage(put=...)``), hiding the transfer behind the
-    remaining staging work."""
+    Fast path: the packed pipeline — stage on the host, one upload, one
+    launch sequence, one fetch. Above ``EAGER_PUT_MIN_ROWS`` rows each
+    staged section group starts its asynchronous upload as soon as its
+    layout pass completes (``stage(put=...)``), hiding the transfer
+    behind the remaining staging work. Falls back to the general
+    resident path when the union exceeds the packed key bounds
+    (>=2^25 parents, >=2^21 map keys, clocks >= 2^40).
+
+    ``clients`` only affects the RESIDENT fallback (it seeds that
+    path's client table). The packed plan interns its own
+    order-preserving table, which is equivalent for convergence: the
+    sibling rules compare clients only through a monotone mapping."""
     dev = resolve_device(device)
     put = None
     if len(cols["client"]) >= staging.EAGER_PUT_MIN_ROWS:
         put = partial(xfer_put, device=dev)
     plan = staging.stage(cols, put=put)
-    if plan is None:
-        raise unstageable_union()
-    return ("packed", packed.converge(plan, device=dev))
+    if plan is not None:
+        return ("packed", packed.converge(plan, device=dev))
+    return ("resident", _converge_resident(cols, clients, device=dev))
+
+
+def _converge_resident(cols, clients, *, device):
+    """The resident fallback: the whole union appended to a fresh
+    :class:`~crdt_tpu_torch.ops.resident.ResidentColumns` and converged
+    in the same call, then ONE wait for the card (the reference's
+    ``block_until_ready``). Returns ``(rc, maps_out, seq_out)``."""
+    from crdt_tpu_torch.ops.resident import ResidentColumns
+
+    n = len(cols["client"])
+    rc = ResidentColumns(
+        capacity=n,
+        clients=clients if clients is not None
+        else np.unique(cols["client"][cols["valid"]]),
+        device=device,
+    )
+    # tight segment bound: distinct (map parent, key) pairs + sequence
+    # roots (the capacity default doubles the ranking's span)
+    n_segs = segment_bound(cols)
+    maps_out, seq_out = rc.append_converge(
+        cols, num_segments=bucket_pow2(n_segs)
+    )
+    if rc.device.type == "cuda":
+        torch.cuda.current_stream(rc.device).synchronize()
+    return rc, maps_out, seq_out
 
 
 def parent_spec(dec: Dict, row: int) -> Tuple:
@@ -129,8 +158,14 @@ def gather(dec: Dict, ds: DeleteSet, handle, *, device):
     Right origins: the packed path orders attachment groups at staging
     (the exact conflict-scan ranks ride the client column), so only
     segments carrying shapes the sibling-rank model cannot express (the
-    plan's ``hard_rows``) re-order on the host, ranking on ``device``."""
+    plan's ``hard_rows``) re-order on the host, ranking on ``device``.
+    The resident fallback keeps the blanket host detour for every
+    right-bearing parent."""
     with get_tracer().span("gather"):
+        if handle[0] == "resident":
+            win_rows, seq_orders = _assemble_resident(dec, handle[1])
+            return finish_assembly(dec, ds, win_rows, seq_orders,
+                                   device=device)
         win_rows, seq_orders = _assemble_packed(dec, handle[1])
         hard = handle[1].hard_rows
         if hard:
@@ -143,11 +178,12 @@ def gather(dec: Dict, ds: DeleteSet, handle, *, device):
 def finish_assembly(dec: Dict, ds: DeleteSet, win_rows, seq_orders, *,
                     device, blanket_rights: bool = True):
     """Shared assembly tail of every convergence engine (packed,
-    fleet): the blanket right-origin host detour — applied when the
-    producing kernels ignore rights entirely (the fleet round), skipped
-    when the producer already ordered its expressible rights at
-    staging — then crafted-map-chain repair and winner visibility. One
-    implementation, so a right-origin fix reaches every route."""
+    fleet, resident): the blanket right-origin host detour — applied
+    when the producing kernels ignore rights entirely (the fleet round,
+    the resident engine), skipped when the producer already ordered its
+    expressible rights at staging — then crafted-map-chain repair and
+    winner visibility. One implementation, so a right-origin fix reaches
+    every route."""
     if blanket_rights:
         rc_col, kid_col = dec["right_client"], dec["key_id"]
         right_seq_rows = np.flatnonzero((rc_col >= 0) & (kid_col < 0))
@@ -201,6 +237,30 @@ def _assemble_packed(dec: Dict, res, row_map=None):
                 seq_orders[spec].extend(chunk)
             else:
                 seq_orders[spec] = chunk
+    return win_rows, seq_orders
+
+
+def _assemble_resident(dec: Dict, out):
+    """Host assembly of the resident engine's outputs, fetched in ONE
+    packed int32 transfer."""
+    rc, maps_out, seq_out = out
+    order, winners, sorder, sseg, srank = fetch_packed_i32(
+        maps_out[0], maps_out[2], seq_out[0], seq_out[1], seq_out[2]
+    )
+    win_rows = [int(order[w]) for w in winners if w >= 0]
+    n = len(dec["client"])
+    seq_pairs: dict = {}
+    for p in np.flatnonzero(srank >= 0):
+        row = int(sorder[p])
+        if row < n:
+            seq_pairs.setdefault(int(sseg[p]), []).append(
+                (int(srank[p]), row)
+            )
+    seq_orders = {}
+    for sid, pairs in seq_pairs.items():
+        pairs.sort()
+        rows = [r for _, r in pairs]
+        seq_orders[parent_spec(dec, rows[0])] = rows
     return win_rows, seq_orders
 
 
@@ -461,16 +521,19 @@ def compact(dec: Dict, ds: DeleteSet) -> bytes:
         return native.encode_from_columns_any(dec, ds)
 
 
-def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
-                 device="cuda") -> ReplayResult:
+def replay_trace(blobs: Sequence[bytes], *,
+                 clients: Optional[Sequence[int]] = None,
+                 route: str = "device", device="cuda") -> ReplayResult:
     """One-shot: blobs in, converged cache + compacted snapshot out,
     converged on ``device`` (the card unless the caller asks for the
-    CPU; with no card present a CUDA request raises).
+    CPU; with no card present a CUDA request raises). ``clients``
+    seeds the resident fallback's client table (:func:`converge`) on
+    the device and stream routes.
 
     ``route`` picks the convergence engine:
 
     - ``"device"`` (default): the packed one-dispatch converge of the
-      whole union;
+      whole union, or the resident fallback past the packed bounds;
     - ``"stream"``: the same converge as a chunked, double-buffered
       pipeline, one converge per shard of whole root subtrees
       (:func:`crdt_tpu_torch.models.streaming.stream_replay`);
@@ -497,7 +560,7 @@ def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
     if route == "stream":
         from crdt_tpu_torch.models.streaming import stream_replay
 
-        return stream_replay(blobs, device=device)
+        return stream_replay(blobs, clients=clients, device=device)
     if route not in ("device", "host", "auto", "replica"):
         raise ValueError(f"unknown route {route!r}")
     if route == "host":
@@ -516,7 +579,8 @@ def replay_trace(blobs: Sequence[bytes], *, route: str = "device",
     if route == "host":
         return _replay_host(dec)
     cols, ds = stage(dec)
-    return _finish(dec, ds, converge(cols, device=dev), dev, "device")
+    return _finish(dec, ds, converge(cols, clients=clients, device=dev),
+                   dev, "device")
 
 
 def _replay_host(dec: Dict) -> ReplayResult:

@@ -32,8 +32,9 @@ segments, and segments never split across shards, so the merged
 winners and orders are the one-shot route's outputs re-ordered. Shapes
 a shard cannot prove locally (right-bearing segments whose origin
 chains leave the segment) go to the exact host machinery, like the
-one-shot gather's hard rows. A union past the packed stager's bounds
-raises, as the one-shot converge does. Differential-tested
+one-shot gather's hard rows. A shard past the packed stager's bounds
+sends the whole union down the one-shot converge's resident fallback
+(``path="stream-fallback"``). Differential-tested
 byte-identical against the reference in tests/test_torch_streaming.py.
 
 Phase accounting: ``phases`` (when passed) receives per-stage BUSY
@@ -295,6 +296,7 @@ def stream_replay(
     chunk_blobs: Optional[int] = None,
     max_shards: int = _MAX_SHARDS,
     min_shard_rows: int = _MIN_SHARD_ROWS,
+    clients: Optional[Sequence[int]] = None,
     phases: Optional[dict] = None,
     device="cuda",
 ) -> ReplayResult:
@@ -305,7 +307,11 @@ def stream_replay(
 
     ``chunk_blobs`` sets the decode chunk size (default: ~8 chunks);
     ``max_shards`` bounds the convergence/materialize pipeline depth.
-    ``phases``, when given, receives per-stage busy seconds plus the
+    ``clients`` seeds the resident fallback's client table exactly as
+    on the device route: a shard past the packed stager's bounds sends
+    the whole union down the one-shot fallback (``path`` is
+    ``"stream-fallback"``, ``phases["fallback"]`` True). ``phases``,
+    when given, receives per-stage busy seconds plus the
     overlap accounting of :func:`overlap_stats`. The reference's
     multi-device shard route is not ported (ROADMAP.md queue A item 9):
     every shard converges on the one ``device``."""
@@ -471,7 +477,24 @@ def stream_replay(
     if failed is not None:
         raise failed
     if unstageable:
-        raise rp.unstageable_union()
+        # the union exceeds the packed layout's bounds: one-shot
+        # fallback through the general path (exact, unpipelined;
+        # ``clients`` seeds the resident table exactly as on the
+        # device route)
+        handle = rp.converge(cols, clients=clients, device=dev)
+        win_rows, win_vis, seq_orders = rp.gather(dec, ds, handle,
+                                                  device=dev)
+        cache = rp.materialize(dec, ds, win_rows, win_vis, seq_orders)
+        snap = rp.compact(dec, ds)
+        if phases is not None:  # the contract holds on every exit
+            wall = time.perf_counter() - t_wall0
+            phases.update({k: round(v, 4) for k, v in ph.t.items()})
+            phases.update(overlap_stats(ph.t, wall))
+            phases["fallback"] = True
+        tl.tick_end(extra_busy=_timeline_lanes(ph))
+        return ReplayResult(
+            cache=cache, snapshot=snap, n_ops=n, path="stream-fallback",
+        )
     ph.timed("materialize", rp.finish_cache, cache, dec, ix_group)
 
     wall = time.perf_counter() - t_wall0

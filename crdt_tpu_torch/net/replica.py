@@ -6,7 +6,8 @@ topic=...)`` mirrors the reference factory: it wires a
 default: the host engine, as in the reference) or a
 :class:`crdt_tpu_torch.api.ResidentCrdt` (``merge_mode="resident"``:
 the document resident on ``device``, the card unless the caller asks
-for the CPU) to a router implementing the contract in
+for the CPU; or ``merge_mode="device"``: the host engine whose remote
+batches rebuild their chains with the kernels on ``device``) to a router implementing the contract in
 :mod:`crdt_tpu_torch.net.router`, registers the per-topic
 sync contract (crdt.js:234-277), and dispatches inbound messages the
 way the reference's ``onData`` does (crdt.js:279-312):
@@ -29,8 +30,7 @@ created remotely appear in the cache (D3).
 
 Messages are the reference's, trace contexts included
 (:mod:`crdt_tpu_torch.obs.propagation`), so port and reference replicas
-share one network. The reference's engine-backed device mode
-(``merge_mode="device"``) is not ported yet and raises at construction.
+share one network.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import random
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-from crdt_tpu_torch.api.doc import DEVICE_MERGE_ITEM, Crdt
+from crdt_tpu_torch.api.doc import Crdt
 from crdt_tpu_torch.codec import v1
 from crdt_tpu_torch.core.ids import StateVector
 from crdt_tpu_torch.obs import propagation
@@ -152,9 +152,10 @@ class Replica:
     """One peer: document + transport verbs + sync state.
 
     ``device`` is where a resident document lives
-    (``merge_mode="resident"``; the card by default, so with no card
-    construction raises). A scalar document is the host engine and
-    takes no device."""
+    (``merge_mode="resident"``) and where a device-merge document
+    rebuilds its chains (``merge_mode="device"``); the card by default,
+    so with no card construction raises. A scalar document is the host
+    engine and takes no device."""
 
     def __init__(
         self,
@@ -222,8 +223,7 @@ class Replica:
 
         # merge_mode selects the document backend:
         #   "scalar"   — Engine-backed, host integrate loop
-        #   "device"   — Engine-backed, kernel merges (device_merge):
-        #                not ported yet, raises below
+        #   "device"   — Engine-backed, kernel merges (device_merge)
         #   "resident" — no engine at all: device-resident columns
         #                serve merges, local ops, AND the sync protocol
         #                (crdt_tpu_torch.api.resident_doc)
@@ -249,14 +249,6 @@ class Replica:
                 )
         if merge_mode not in ("scalar", "device", "resident"):
             raise ValueError(f"unknown merge_mode {merge_mode!r}")
-        if merge_mode == "device":
-            # the engine-backed kernel merge is not ported: running the
-            # replica on the host engine instead would hide that
-            raise NotImplementedError(
-                f"merge_mode='device' is not ported yet "
-                f"({DEVICE_MERGE_ITEM}); use merge_mode='resident' "
-                "(the device-resident document) or 'scalar'"
-            )
         self.merge_mode = merge_mode
 
         cid = client_id if client_id is not None else _random_client_id()
@@ -272,21 +264,23 @@ class Replica:
                 device=device,
             )
         else:
-            # scalar: device_merge is falsy here or overridden by an
-            # explicit merge_mode="scalar" (the reference passes
-            # device_merge=False then)
+            # an explicit merge_mode overrides device_merge
+            # (merge_mode="device" enables device merges, "scalar"
+            # disables them); otherwise the mode was derived from it
             self.doc = Crdt(
                 cid,
                 observer_function=observer_function,
                 on_update=self._on_local_update,
                 full_state_updates=full_state_updates,
+                device_merge=merge_mode == "device",
+                device=device,
             )
         # receive-side batching: updates arriving within one router
         # poll round are buffered and applied as ONE merge transaction
-        # (one device round in resident mode, above the crossover) —
-        # the north-star gate at the sync handler. Defaults on in
-        # resident mode; scalar mode keeps per-message application
-        # unless asked.
+        # (one kernel rebuild in device mode, one device round in
+        # resident mode above the crossover) — the north-star gate at
+        # the sync handler. Defaults on in device and resident mode;
+        # scalar mode keeps per-message application unless asked.
         if batch_incoming is None:
             batch_incoming = self.doc.device_merge
         self.batch_incoming = batch_incoming

@@ -141,6 +141,22 @@ def xfer_fetch(t: torch.Tensor, *, label: str = "result") -> np.ndarray:
     return h
 
 
+def fetch_packed_i32(*tensors) -> list:
+    """Fetch several device index tensors in ONE int32 transfer: their
+    int32 views are concatenated on the device and cross as one D2H
+    copy (:func:`xfer_fetch`). Every kernel index/segment output fits
+    int32 (values below the pad bucket, NULLI = -1). Returns host
+    arrays in input order."""
+    h = xfer_fetch(torch.cat([t.to(torch.int32) for t in tensors]),
+                   label="packed_i32")
+    out, off = [], 0
+    for t in tensors:
+        n = t.shape[0]
+        out.append(h[off:off + n])
+        off += n
+    return out
+
+
 def record_staged_widths(widths: dict, shipped_bytes: int,
                          wide_bytes: int) -> None:
     """Per-upload narrowing record: one ``xfer.col_width`` count per

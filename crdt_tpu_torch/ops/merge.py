@@ -12,21 +12,27 @@ gossip relies on idempotent merge) converges in one pass of tensor ops:
   6. visibility of each winner
 
 Content values never touch the device: the outputs are winner
-*indices* into the caller's rows.
+*indices* into the caller's rows; :func:`merge_records` is the host
+wrapper (records -> columns -> one ``converge_maps`` on a device the
+caller names -> materialized map winners).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from crdt_tpu_torch.codec.native import resolve_parents  # noqa: F401 — the reference's name
+from crdt_tpu_torch.core.ids import DeleteSet
+from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.ops import deleteset as ds_ops
 from crdt_tpu_torch.ops.device import (
     NULLI,
     lexsort,
     pack_id,
+    resolve_device,
     scatter_perm,
     searchsorted_ids,
 )
@@ -71,8 +77,7 @@ def dense_segments(segkey, member) -> torch.Tensor:
     n = member.shape[0]
     sorder = lexsort(segkey)
     changed = torch.zeros(n, dtype=torch.bool, device=member.device)
-    if n:
-        changed[0] = True
+    changed[:1].fill_(True)  # a fill kernel: no host sync on the card
     for k in segkey:
         ks = k[sorder]
         changed[1:] |= ks[1:] != ks[:-1]
@@ -144,3 +149,117 @@ def converge_maps(
     winner_visible = (winners != NULLI) & ~del_mask[wc]
 
     return order, seg, winners, winner_visible, del_mask, uniq_valid
+
+
+# ---------------------------------------------------------------------------
+# host wrapper: records -> device columns -> materialized maps
+# ---------------------------------------------------------------------------
+
+
+class Interner:
+    """Canonical string<->int tables shared across a merge batch."""
+
+    def __init__(self):
+        self.roots: Dict[str, int] = {}
+        self.keys: Dict[str, int] = {}
+
+    def root(self, name: str) -> int:
+        return self.roots.setdefault(name, len(self.roots))
+
+    def key(self, name: str) -> int:
+        return self.keys.setdefault(name, len(self.keys))
+
+
+def records_to_columns(
+    records: List[ItemRecord], interner: Interner, pad: Optional[int] = None
+) -> Dict[str, np.ndarray]:
+    """Symbolic records -> padded integer columns for the kernel.
+
+    Records whose parent/key is implicit (mid-run items) must have been
+    resolved first — `Engine.records_since` always emits explicit rows;
+    for raw decoded updates run :func:`resolve_parents`.
+    """
+    n = len(records)
+    size = pad or max(1, n)
+    cols = {
+        "client": np.full(size, 0, np.int32),
+        "clock": np.full(size, 0, np.int64),
+        "parent_is_root": np.zeros(size, bool),
+        "parent_a": np.full(size, -2, np.int64),
+        "parent_b": np.full(size, -2, np.int64),
+        "key_id": np.full(size, -1, np.int32),
+        "origin_client": np.full(size, -1, np.int32),
+        "origin_clock": np.full(size, -1, np.int64),
+        "valid": np.zeros(size, bool),
+    }
+    for i, r in enumerate(records):
+        cols["client"][i] = r.client
+        cols["clock"][i] = r.clock
+        if r.parent_root is not None:
+            cols["parent_is_root"][i] = True
+            cols["parent_a"][i] = interner.root(r.parent_root)
+            cols["parent_b"][i] = -1
+        elif r.parent_item is not None:
+            cols["parent_a"][i] = r.parent_item[0]
+            cols["parent_b"][i] = r.parent_item[1]
+        cols["key_id"][i] = interner.key(r.key) if r.key is not None else -1
+        if r.origin is not None:
+            cols["origin_client"][i] = r.origin[0]
+            cols["origin_clock"][i] = r.origin[1]
+        cols["valid"][i] = True
+    return cols
+
+
+def merge_records(
+    records: List[ItemRecord],
+    delete_set: Optional[DeleteSet] = None,
+    interner: Optional[Interner] = None,
+    *,
+    device="cuda",
+) -> Dict[Tuple, Tuple[Optional[ItemRecord], bool]]:
+    """Full host->device->host map merge of a record union, converged
+    on ``device`` (the card unless the caller asks for the CPU).
+
+    Returns {(parent, key): (winning record, visible)} where parent is
+    ("root", name) or ("item", client, clock).
+    """
+    dev = resolve_device(device)
+    records = resolve_parents(records)
+    interner = interner or Interner()
+    # pad to power-of-two buckets (floor 512), as the reference does
+    pad = 1 << max(9, (len(records) - 1).bit_length())
+    cols = records_to_columns(records, interner, pad=pad)
+    ds = delete_set or DeleteSet()
+    d_client, d_start, d_end = ds_ops.ranges_to_device(ds)
+    # bucket-pad ranges as well (null client -1 ranges match nothing)
+    dpad = 1 << max(6, (len(d_client) - 1).bit_length()) if d_client else 0
+    d_client = list(d_client) + [-1] * (dpad - len(d_client))
+    d_start = list(d_start) + [-1] * (dpad - len(d_start))
+    d_end = list(d_end) + [-1] * (dpad - len(d_end))
+
+    def put(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    order, _, winners, visible, _, _ = converge_maps(
+        *(put(cols[name]) for name in (
+            "client", "clock", "parent_is_root", "parent_a", "parent_b",
+            "key_id", "origin_client", "origin_clock", "valid")),
+        put(np.asarray(d_client, np.int32)),
+        put(np.asarray(d_start, np.int64)),
+        put(np.asarray(d_end, np.int64)),
+    )
+    order = order.cpu().numpy()
+    winners = winners.cpu().numpy()
+    visible = visible.cpu().numpy()
+    out: Dict[Tuple, Tuple[Optional[ItemRecord], bool]] = {}
+    for w, vis in zip(winners, visible):
+        if w == NULLI:
+            continue
+        rec = records[order[w]]
+        parent = (
+            ("root", rec.parent_root)
+            if rec.parent_root is not None
+            else ("item",) + tuple(rec.parent_item)
+        )
+        out[(parent, rec.key)] = (rec, bool(vis))
+    return out

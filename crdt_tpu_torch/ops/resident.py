@@ -1,25 +1,41 @@
-"""The pooled resident matrix: one device allocation for every warm doc
-of the multi-tenant server.
+"""Device-resident columnar unions: the full-converge buffer and the
+pooled matrix of the multi-tenant server.
 
-The port's counterpart of the pooled half of ``crdt_tpu.ops.resident``
-(:class:`ResidentPool`, :class:`_Extent`, :func:`_octave8`). The other
-half of that module, ``ResidentColumns`` and its full-converge
-``_converge_all`` (which reaches the ``ds_mask`` kernel through
-``converge_maps``), is not ported here: it belongs to ROADMAP queue A
-item 7, the resident full-converge path.
+The port's counterpart of ``crdt_tpu.ops.resident``, both halves:
 
-Each attached :class:`~crdt_tpu_torch.models.incremental.IncrementalReplay`
-owns an extent (a pow2-bucketed column range) of one ``[8, cap]`` int64
-matrix on the pool's device. Its device rounds DEFER here, and the
-server's tick converges every deferred round in ONE dispatch
-(:meth:`ResidentPool.flush` → ``packed._pool_splice_select_converge`` →
-``_converge_core`` → ``_rank_compact``, which runs the ``stream_scatter``
-kernel).
+- :class:`ResidentColumns`, the firehose path's growable device buffer
+  of the nine union columns (:data:`COLUMNS`). ``append`` ships only the
+  delta, padded to its power-of-two bucket, and splices it in place at
+  offset ``n``; ``converge`` (or the fused ``append_converge``) runs the
+  LWW map merge (``merge.converge_maps``, which reaches the ``ds_mask``
+  kernel) and the YATA sequence order (``yata.converge_sequences``)
+  over the resident buffers and returns DEVICE tensors. It is the
+  resident fallback of every replay route for a union past the packed
+  stager's bounds (:func:`crdt_tpu_torch.models.replay.converge`).
+  Client ids are interned to DENSE, ORDER-PRESERVING values on append
+  (the kernels pack ``client << 40 | clock`` into int64, which random
+  31-bit replica ids would alias, and the sibling rules compare client
+  ids): dense id = rank among all raw ids seen; a new id arriving
+  BETWEEN existing ones shifts later ranks and relabels the resident
+  client columns in place, once (never when the clients were
+  registered up front with ``clients=``).
+- :class:`ResidentPool` and :class:`_Extent`: ONE device allocation for
+  every warm doc of the multi-tenant server. Each attached
+  :class:`~crdt_tpu_torch.models.incremental.IncrementalReplay` owns an
+  extent (a pow2-bucketed column range) of one ``[8, cap]`` int64
+  matrix on the pool's device. Its device rounds DEFER here, and the
+  server's tick converges every deferred round in ONE dispatch
+  (:meth:`ResidentPool.flush` → ``packed._pool_splice_select_converge``
+  → ``_converge_core`` → ``_rank_compact``, which runs the
+  ``stream_scatter`` kernel).
+
+JAX's donated buffers become in-place mutation here; the splice
+asserts its window lies inside the buffer where JAX would clamp it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +43,270 @@ import torch
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed as pk
 from crdt_tpu_torch.ops.device import bucket_pow2 as _bucket
-from crdt_tpu_torch.ops.device import resolve_device
+from crdt_tpu_torch.ops.device import resolve_device, xfer_put
 from crdt_tpu_torch.ops.staging import _KID_BITS
+
+# (name, dtype) in kernel argument order
+COLUMNS = (
+    ("client", np.int32),
+    ("clock", np.int64),
+    ("parent_is_root", np.bool_),
+    ("parent_a", np.int64),
+    ("parent_b", np.int64),
+    ("key_id", np.int32),
+    ("origin_client", np.int32),
+    ("origin_clock", np.int64),
+    ("valid", np.bool_),
+)
+
+_FILL = {
+    "client": 0,
+    "clock": 0,
+    "parent_is_root": False,
+    "parent_a": -2,
+    "parent_b": -2,
+    "key_id": -1,
+    "origin_client": -1,
+    "origin_clock": -1,
+    "valid": False,
+}
+
+_TORCH = {np.int32: torch.int32, np.int64: torch.int64,
+          np.bool_: torch.bool}
+
+
+def _null_ranges(device):
+    """The 16 null delete ranges a converge without a delete set takes
+    (client -1 matches nothing)."""
+    return (torch.full((16,), -1, dtype=torch.int32, device=device),
+            torch.full((16,), -1, dtype=torch.int64, device=device),
+            torch.full((16,), -1, dtype=torch.int64, device=device))
+
+
+def _converge_all(bufs, d_client, d_start, d_end, num_segments):
+    """Map + sequence convergence over the resident buffers: the LWW
+    merge (``ds_mask`` inside) and the YATA document order. Returns
+    ``(maps_out, seq_out)`` as device tensors."""
+    from crdt_tpu_torch.ops.merge import converge_maps
+    from crdt_tpu_torch.ops.yata import converge_sequences
+
+    maps_out = converge_maps(
+        *bufs, d_client, d_start, d_end, num_segments=num_segments,
+    )
+    seq_out = converge_sequences(*bufs, num_segments=num_segments)
+    return maps_out, seq_out
+
+
+def _splice(bufs, delta, n: int):
+    """In-place append of a padded delta at offset ``n``. The caller
+    grew the buffers for ``n + len(delta)`` first; a window past the
+    end (which JAX's ``dynamic_update_slice`` would clamp) is a bug."""
+    for b, d in zip(bufs, delta):
+        k = d.shape[0]
+        assert n + k <= b.shape[0], (n, k, b.shape[0])
+        b[n:n + k].copy_(d)
+    return bufs
+
+
+def _splice_and_converge(bufs, delta, n, d_client, d_start, d_end,
+                         num_segments):
+    """Append + full convergence in one call (the single-delta replay
+    path)."""
+    bufs = _splice(bufs, delta, n)
+    maps_out, seq_out = _converge_all(
+        bufs, d_client, d_start, d_end, num_segments=num_segments,
+    )
+    return bufs, maps_out, seq_out
+
+
+def _relabel(bufs, perm: torch.Tensor):
+    """Rewrite the client columns in place through an old-dense ->
+    new-dense permutation (invalid rows hold 0, which perm covers; -1
+    origins stay -1; the origin gather clips as the reference's)."""
+    bufs[0].copy_(perm[bufs[0].long()].to(bufs[0].dtype))
+    oc = bufs[6]
+    hi = perm.shape[0] - 1
+    oc.copy_(torch.where(oc >= 0, perm[oc.long().clamp(0, hi)],
+                         oc.to(perm.dtype)).to(oc.dtype))
+    return bufs
+
+
+class ResidentColumns:
+    """Growable device-resident op columns + in-place convergence, on
+    ``device`` (the card unless the caller asks for the CPU; resolved
+    at construction, so a CUDA request without a card raises here)."""
+
+    def __init__(
+        self,
+        capacity: int = 1 << 15,
+        clients: Optional[Sequence[int]] = None,
+        *,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        cap = _bucket(capacity)
+        self.n = 0
+        self._seen: List[int] = []  # sorted raw client ids
+        self._dense: Dict[int, int] = {}  # raw -> rank among seen
+        if clients is not None and len(clients) > 0:
+            self._intern(np.asarray(sorted(set(int(c) for c in clients))))
+        self._bufs: List[torch.Tensor] = [
+            torch.full((cap,), _FILL[name], dtype=_TORCH[dt],
+                       device=self.device)
+            for name, dt in COLUMNS
+        ]
+
+    @property
+    def capacity(self) -> int:
+        return int(self._bufs[0].shape[0])
+
+    def device_bytes(self) -> int:
+        """Device-memory footprint of the resident buffers (capacity x
+        the column itemsizes, 46 bytes a row), the reference's unit."""
+        cap = self.capacity
+        return sum(cap * np.dtype(dt).itemsize for _, dt in COLUMNS)
+
+    # -- client interning ---------------------------------------------
+    def _intern(self, raw_ids: np.ndarray) -> Optional[np.ndarray]:
+        """Register raw ids. Returns an old-dense->new-dense permutation
+        when existing ranks shifted (caller must relabel the resident
+        columns), else None."""
+        new = sorted(set(int(c) for c in raw_ids) - self._dense.keys())
+        if not new:
+            return None
+        shifted = bool(self._seen) and new[0] < self._seen[-1]
+        old = dict(self._dense) if shifted else None
+        self._seen = sorted(self._seen + new)
+        self._seen_arr = np.asarray(self._seen)
+        self._dense = {raw: i for i, raw in enumerate(self._seen)}
+        if old and self.n:
+            perm = np.zeros(len(old), np.int32)
+            for raw, od in old.items():
+                perm[od] = self._dense[raw]
+            return perm
+        return None
+
+    def _map_clients(self, arr: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """Raw -> dense for the masked entries; others untouched."""
+        out = arr.astype(np.int32).copy()
+        if mask.any():
+            vals = arr[mask]
+            out[mask] = np.searchsorted(self._seen_arr, vals).astype(np.int32)
+        return out
+
+    # -- append / converge --------------------------------------------
+    def _prepare_delta(self, cols: Dict[str, np.ndarray], k: int):
+        """Shared append preamble: client interning (+ the in-place
+        relabel when ranks shifted), capacity growth, and the padded
+        delta tensors on the device."""
+        valid = np.asarray(cols["valid"][:k], bool)
+        raw_cl = np.asarray(cols["client"][:k])
+        raw_ocl = np.asarray(cols["origin_client"][:k])
+        perm = self._intern(
+            np.concatenate([raw_cl[valid], raw_ocl[raw_ocl >= 0]])
+        )
+        if perm is not None:
+            _relabel(self._bufs, torch.from_numpy(perm).to(self.device))
+        if self.n + k > self.capacity:
+            self._grow(self.n + k)
+        kpad = min(_bucket(k, floor=6), self.capacity)
+        if self.n + kpad > self.capacity:
+            self._grow(self.n + kpad)
+
+        delta = []
+        for name, dt in COLUMNS:
+            arr = np.full(kpad, _FILL[name], dtype=dt)
+            if name == "client":
+                arr[:k] = np.where(
+                    valid, self._map_clients(raw_cl, valid), 0
+                )
+            elif name == "origin_client":
+                arr[:k] = self._map_clients(raw_ocl, raw_ocl >= 0)
+            else:
+                arr[:k] = cols[name][:k]
+            # only the delta crosses the link, accounted per column
+            delta.append(xfer_put(arr, device=self.device,
+                                  label="resident.delta"))
+        return delta
+
+    def append(self, cols: Dict[str, np.ndarray]) -> None:
+        """Splice a host-side delta into the resident union. Only the
+        delta (padded to its power-of-two bucket) crosses to the
+        device; resident rows never re-upload."""
+        k = len(cols["client"])
+        if k == 0:
+            return
+        delta = self._prepare_delta(cols, k)
+        _splice(self._bufs, delta, self.n)
+        self.n += k
+
+    def append_converge(
+        self,
+        cols: Dict[str, np.ndarray],
+        num_segments: Optional[int] = None,
+        d_client=None,
+        d_start=None,
+        d_end=None,
+    ):
+        """Fused append + convergence, the single-delta replay path.
+        Equivalent to ``append(cols)`` then ``converge(...)``."""
+        k = len(cols["client"])
+        if k == 0:
+            return self.converge(
+                num_segments=num_segments, d_client=d_client,
+                d_start=d_start, d_end=d_end,
+            )
+        delta = self._prepare_delta(cols, k)
+        # default segments AFTER _prepare_delta: it may grow the
+        # capacity, and a pre-growth default would alias segment ids
+        # (diverging from append() + converge())
+        segs = num_segments or self.capacity
+        if d_client is None:
+            d_client, d_start, d_end = _null_ranges(self.device)
+        self._bufs, maps_out, seq_out = _splice_and_converge(
+            self._bufs, delta, self.n, d_client, d_start, d_end,
+            num_segments=segs,
+        )
+        self.n += k
+        return maps_out, seq_out
+
+    def _grow(self, need: int) -> None:
+        new_cap = _bucket(need)
+        grown = []
+        for (name, dt), b in zip(COLUMNS, self._bufs):
+            nb = torch.full((new_cap,), _FILL[name], dtype=_TORCH[dt],
+                            device=self.device)
+            nb[:b.shape[0]].copy_(b)
+            grown.append(nb)
+        self._bufs = grown
+
+    def dense_client(self, raw: int) -> Optional[int]:
+        """Dense id currently assigned to a raw client id."""
+        return self._dense.get(int(raw))
+
+    def converge(
+        self,
+        num_segments: Optional[int] = None,
+        d_client=None,
+        d_start=None,
+        d_end=None,
+    ):
+        """One full applyUpdate over the resident union: map winners
+        (``converge_maps``) + sequence order (``converge_sequences``).
+        Returns the two kernels' raw outputs as DEVICE tensors.
+
+        Delete ranges, when given, must use DENSE client ids
+        (:meth:`dense_client`) and lie on the buffers' device.
+        """
+        segs = num_segments or self.capacity
+        if d_client is None:
+            d_client, d_start, d_end = _null_ranges(self.device)
+        return _converge_all(
+            self._bufs, d_client, d_start, d_end, num_segments=segs,
+        )
+
+
+# ---- the POOLED resident matrix --------------------------------------
 
 
 def _octave8(n: int, floor: int) -> int:

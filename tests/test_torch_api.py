@@ -22,7 +22,6 @@ from crdt_tpu.api import Crdt as RefCrdt
 from crdt_tpu.api import ResidentCrdt as RefResident
 from crdt_tpu.ops import packed as ref_pk
 from crdt_tpu_torch.api import Crdt, ResidentCrdt
-from crdt_tpu_torch.api.doc import DEVICE_MERGE_ITEM
 from crdt_tpu_torch.models.replay import replay_trace
 from crdt_tpu_torch.ops import packed as pk
 from tests import test_yjs_fixtures as fx
@@ -315,12 +314,20 @@ def test_resident_cut_of_nothing_deletes_nothing(index, length):
     assert dict(res_ref.doc.c) != want  # the reference's resident cut
 
 
-def test_device_merge_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Crdt(1, device_merge=True)
-    assert "item 7" in DEVICE_MERGE_ITEM
+def test_device_merge_raises_naming_item_7(monkeypatch):
+    import torch
+
+    # Crdt(device_merge=True) is ported: the rebuild runs on the device
+    # it names, the card by default (which raises without one); the
+    # host engine takes no device
+    doc = Crdt(1, device_merge=True, device="cpu")
+    assert doc.device_merge is True and str(doc.device) == "cpu"
     assert Crdt(1, device_merge=False).device_merge is False
     assert Crdt(1).device_merge is False
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Crdt(1, device_merge=True)
+    assert Crdt(1, device_merge=False).device is None
 
 
 def test_resident_doc_without_device_needs_a_card(monkeypatch):

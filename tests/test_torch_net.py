@@ -3,9 +3,10 @@ reference's, on the CPU.
 
 Port swarms over the port's ``LoopbackNetwork`` run the same client ids
 and ops as reference swarms in the same merge mode (``"scalar"``, and
-``"resident"`` with ``device="cpu"``): every replica must agree with its
-reference counterpart on ``c``, the state vector, the full state, its
-``MemoryPersistence`` log byte for byte and the compaction snapshot. A
+``"resident"`` and ``"device"`` with ``device="cpu"``): every replica
+must agree with its reference counterpart on ``c``, the state vector,
+the full state, its ``MemoryPersistence`` log byte for byte and the
+compaction snapshot. A
 port replica and a reference replica on one network (the router
 contract is duck-typed) must converge with the tracer and recorder on in
 both packages, which pins the wire form of updates, state vectors and
@@ -43,11 +44,11 @@ from crdt_tpu_torch.ops import packed as pk
 PORT = types.SimpleNamespace(net=port_net, kw={"device": "cpu"},
                              StateVector=StateVector)
 REF = types.SimpleNamespace(net=ref_net, kw={}, StateVector=RefStateVector)
-MODES = ["scalar", "resident"]
+MODES = ["scalar", "resident", "device"]
 
 
 def _rep(pkg, net, pk_name, mode, **options):
-    kw = dict(pkg.kw) if mode == "resident" else {}
+    kw = dict(pkg.kw) if mode in ("resident", "device") else {}
     kw.update(options)
     return pkg.net.ypear_crdt(pkg.net.LoopbackRouter(net, pk_name),
                               topic=kw.pop("topic", "t"), merge_mode=mode,
@@ -364,14 +365,30 @@ def test_restart_late_join_and_anti_entropy_in_device_rounds():
 # ---------------------------------------------------------------------------
 
 
-def test_device_merge_mode_raises_naming_item_7():
+def test_device_merge_mode_raises_naming_item_7(monkeypatch):
+    # merge_mode="device" (also reached by device_merge=True) is ported:
+    # it builds the reference's engine-backed device-merge document,
+    # with batched receive, on the device it names; without a card it
+    # raises at construction
+    for options in ({"merge_mode": "device"}, {"device_merge": True}):
+        net = port_net.LoopbackNetwork()
+        r = port_net.ypear_crdt(port_net.LoopbackRouter(net, "d"),
+                                topic="t", device="cpu", **options)
+        ref = ref_net.ypear_crdt(ref_net.LoopbackRouter(
+            ref_net.LoopbackNetwork(), "d"), topic="t", **options)
+        assert r.merge_mode == ref.merge_mode == "device"
+        assert isinstance(r.doc, Crdt)
+        assert r.doc.device_merge and ref.doc.device_merge
+        assert r.batch_incoming == ref.batch_incoming is True
+        assert str(r.doc.device) == "cpu"
+        assert net.topics.get("t")
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     net = port_net.LoopbackNetwork()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_net.ypear_crdt(port_net.LoopbackRouter(net, "d"), topic="t",
-                            merge_mode="device")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port_net.ypear_crdt(port_net.LoopbackRouter(net, "e"), topic="t",
-                            device_merge=True)
+                            merge_mode="device")
     assert not net.topics.get("t")  # raised before joining the topic
 
 

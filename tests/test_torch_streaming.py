@@ -164,12 +164,18 @@ class TestPipelineFaults:
 
     def test_unstageable_shard_raises(self, monkeypatch):
         # a shard past the packed stager's bounds (2^25 parents, 2^21
-        # keys: too large to build here): the reference falls back to
-        # its resident engine, the port raises as the one-shot does
+        # keys: too large to build here, so the stager is made to
+        # refuse): both packages take the one-shot resident fallback
+        blobs = mixed_blobs(R=6, K=10)
+        monkeypatch.setattr(ref_packed, "stage", lambda *a, **kw: None)
+        want = ref_sm.stream_replay(blobs, max_shards=2, min_shard_rows=1)
         monkeypatch.setattr(sm.staging, "stage", lambda *a, **kw: None)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            stream_replay(mixed_blobs(R=6, K=10), max_shards=2,
-                          min_shard_rows=1, device="cpu")
+        phases = {}
+        got = stream_replay(blobs, max_shards=2, min_shard_rows=1,
+                            phases=phases, device="cpu")
+        assert got.path == want.path == "stream-fallback"
+        assert phases["fallback"] is True
+        assert got.cache == want.cache and got.snapshot == want.snapshot
 
     def test_default_is_the_card_and_raises_without_one(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
