@@ -80,6 +80,19 @@ JAX or of the reference package. Phases, each fatal on failure:
      1000 x 100 trace in one ``apply_updates`` and one rebuild pass of
      100,000 rows, equal to the cold device route and to the CPU, then
      a remote batch rebuilding only the touched parents' rows;
+  12. replica sync over the encrypted UDP transport (:func:`udp_phase`),
+     also before the timing, every router under ``bench.py``'s
+     fleet-trace fault schedule: a resident replica restarts from a
+     native log of the 1000 x 100 trace (one device round, one
+     ``stream_scatter`` launch) and serves a device-merge joiner that
+     knows only the rendezvous its first state over the fragmented,
+     reliable, encrypted transport (one rebuild pass, one ``ds_mask``
+     launch); both equal the cold device route, edit, and converge; one
+     device round runs under ``torch_profile``; two replicas behind
+     symmetric NATs converge through the relay with a device fault
+     injected; three processes on the card (this script with
+     ``--udp-child``) are scraped live by a ``FleetCollector`` and meet
+     ``bench.py``'s fleet-trace acceptance;
   9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
@@ -98,8 +111,9 @@ run's device-route and fleet-route shapes, the live replica's ingest
 shape (``"path": "incremental"``), replica A's load shape
 (``"path": "replica"``), the largest cold multi-tenant batch
 (``"path": "multidoc"``), a steady pooled flush (``"path": "pool"``),
-and ``ds_mask`` on the resident engine (``"path": "resident"``) and in
-the device merge's rebuild (``"path": "device_merge"``); the last line is
+``ds_mask`` on the resident engine (``"path": "resident"``) and in the
+device merge's rebuild (``"path": "device_merge"``), and phase 12's
+restart and join over UDP (``"path": "udp"``); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -290,6 +304,8 @@ def capture_kernel_inputs(seen: dict, *sites):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--udp-child"] and len(sys.argv) == 3:
+        return udp_child(sys.argv[2])
     if not (ROOT / "crdt_tpu_torch" / "csrc").is_dir():
         return fail(f"crdt_tpu_torch/ not found beside {__file__}")
     sys.path.insert(0, str(ROOT))
@@ -353,6 +369,12 @@ def main() -> int:
         log(f"build {name}: {b.path.name} " + " | ".join(ptxas))
     for name in built:
         _build.library(name)
+    # phase 12's transport, built before any child process starts
+    from crdt_tpu_torch.net import transport
+    t0 = time.perf_counter()
+    transport.random_bytes(1)
+    log(f"build: native transport {transport._SO.name} in "
+        f"{time.perf_counter() - t0:.3f} s (g++)")
 
     dev = torch.device("cuda")
     max_err = {name: 0 for name in REPLACES}
@@ -642,6 +664,12 @@ def main() -> int:
                            hold_kernel, swarm_states)
     done("11 resident engine, device merge")
 
+    # ---- 12. replica sync over the encrypted UDP transport (before the
+    # timing, which it feeds)
+    udp = udp_phase(torch, kernels, packed_mod, deleteset, blobs_of,
+                    device_results, hold_kernel)
+    done("12 sync over UDP")
+
     # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
         if label.startswith("text"):
@@ -698,6 +726,15 @@ def main() -> int:
             r["path"] = path
         log(f"kernel times ({path}): " + json.dumps(rows))
         res_rows += rows
+    # ... and phase 12's call sites over UDP: A's restart
+    # (packed._rank_compact) and B's rebuild (converge_maps)
+    udp_rows = kernel_rows(torch, kernels,
+                           {name: calls[:1] for name, calls in udp.items()},
+                           {name: len(calls) for name, calls in udp.items()},
+                           max_err)
+    for r in udp_rows:
+        r["path"] = "udp"
+    log("kernel times (udp: A's restart, B's join): " + json.dumps(udp_rows))
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -710,7 +747,7 @@ def main() -> int:
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
     print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows
-                      + res_rows}), flush=True)
+                      + res_rows + udp_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2241,6 +2278,747 @@ def device_merge_checks(torch, rp, blobs_of, device_results,
     return restart_seen
 
 
+# ---------------------------------------------------------------------------
+# phase 12: replica sync over the encrypted UDP transport
+# ---------------------------------------------------------------------------
+
+# bench.py's --fleet-trace schedule (bench.py:3218-3222; its defaults at
+# bench.py:3380-3384): every router drops 4%, duplicates 2% and delays
+# 8% of its outbound messages by 1-3 polls, seeded
+UDP_SEED = 7
+UDP_FAULTS = {"drop": 0.04, "duplicate": 0.02, "delay": 0.08,
+              "delay_polls": (1, 3)}
+# bench.py's fleet-trace router knobs (bench.py:3192-3202): fast dial
+# retries, an early relay, an announce refresh that repairs a dropped
+# (one-shot) announce within a third of a second
+UDP_ROUTER = {"relay_after_s": 0.25, "dial_retry_s": 0.1,
+              "dial_retry_max_s": 0.5, "announce_ttl": 1.0}
+# the late joiner's ready-probe retry: past the answer's transfer (the
+# transport bursts every fragment and repairs the loss by RTO rounds),
+# or the probe would fetch the whole answer again mid-transfer
+UDP_JOIN_PROBE_RETRY_S = 30.0
+# the replicas' client ids, clear of the trace's 1..1000
+UDP_A, UDP_B, UDP_CANON = 5001, 5002, 5003
+# bench.py's fleet-trace children: ops each, value bytes an op
+UDP_FLEET_OPS, UDP_FLEET_VAL_BYTES = 10, 1024
+UDP_FRAGMENT = 1200  # native/transport/transport.cc:588, FRAG_PAYLOAD
+
+
+def _free_ports(n: int, *, udp: bool) -> list:
+    """``n`` distinct free 127.0.0.1 ports (bind, read, release; the
+    children bind them again)."""
+    import socket
+
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket(socket.AF_INET,
+                          socket.SOCK_DGRAM if udp else socket.SOCK_STREAM)
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def udp_router(seed_byte: int, schedule=None, **kw):
+    """A port ``UdpRouter`` with bench.py's fleet-trace knobs, a fixed
+    identity, and ``schedule`` (by default bench.py's) at its seam.
+    Returns the router and its faulty endpoint."""
+    from crdt_tpu_torch.net import FaultSchedule, UdpRouter, install_faults
+
+    r = UdpRouter(seed=bytes([seed_byte]) * 32, **{**UDP_ROUTER, **kw})
+    return r, install_faults(r, schedule or FaultSchedule(UDP_SEED,
+                                                          **UDP_FAULTS))
+
+
+def pump_repair(routers, cond, repair, *, timeout_s: float) -> int:
+    """``pump_until`` under faults: each second ``cond()`` does not
+    hold, ``repair()`` runs. Returns how many times it ran."""
+    from crdt_tpu_torch.net import pump_until
+
+    deadline = time.monotonic() + timeout_s
+    repairs = 0
+    while True:
+        try:
+            pump_until(routers, cond, timeout_s=min(
+                1.0, max(deadline - time.monotonic(), 0.01)))
+            return repairs
+        except TimeoutError:
+            if time.monotonic() > deadline:
+                raise
+            repairs += 1
+            repair()
+
+
+def redial(routers, boot):
+    """A repair: every router that hears no one yet dials the
+    rendezvous ``boot`` again (the bootstrap hello is a one-shot the
+    schedule can eat; bench.py's children re-dial too)."""
+    def run():
+        for r in routers:
+            if r is not boot and not r.peers:
+                r.add_peer(*boot.addr)
+    return run
+
+
+def anti_entropy(reps):
+    """A repair: every replica runs one anti-entropy round and one
+    ready probe (what the cadence of ``anti_entropy_s`` runs)."""
+    def run():
+        for r in reps:
+            r.anti_entropy()
+            r.probe()
+    return run
+
+
+def udp_endpoints(eps: dict, routers: dict) -> dict:
+    """Each router's transport: failed and pending messages, the fault
+    schedule's counts and the router's stats."""
+    return {name: {"failed": ep.failed, "pending": ep.pending,
+                   "faults": dict(ep.stats),
+                   "router": {k: v for k, v in routers[name].stats.items()
+                              if v}}
+            for name, ep in eps.items()}
+
+
+def udp_phase(torch, kernels, packed_mod, deleteset, blobs_of,
+              device_results, hold_kernel, device: str = "cuda") -> dict:
+    """Phase 12, replica sync over real, encrypted UDP on ``device``
+    (:func:`udp_late_join`, :func:`udp_nat_relay`, :func:`udp_fleet`;
+    the main path runs it on the card). Returns the kernel inputs of the
+    late join's two call sites."""
+    want = device_results["trace_1000x100"]
+    out = udp_late_join(torch, kernels, packed_mod, deleteset,
+                        blobs_of["trace_1000x100"], want.n_ops,
+                        json.dumps(want.cache, sort_keys=True), hold_kernel,
+                        device)
+    udp_nat_relay(torch, kernels, device)
+    udp_fleet(torch, device)
+    return out
+
+
+def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
+                  want_cache: str, hold_kernel, device: str = "cuda") -> dict:
+    """Phase 12 (a): BASELINE #5 at its stated size over UDP.
+
+    Three port routers on 127.0.0.1, each under bench.py's fleet-trace
+    fault schedule: a rendezvous R that subscribes nothing; A, a
+    resident replica on the card restarting from a ``LogPersistence``
+    log of ``blobs`` (one device round, one ``stream_scatter`` launch);
+    B, a device-merge replica on the card that knows only R and gets
+    its first state from A through the fragmented, reliable, encrypted
+    transport (one rebuild pass, one ``ds_mask`` launch). Both caches
+    equal the cold device route; both then run phase 8's mixed op mix
+    and end with equal ``state_digest``\\ s; one device round of A runs
+    under ``torch_profile``. Returns the two call sites' inputs."""
+    import tempfile
+
+    from crdt_tpu_torch.api.doc import Crdt
+    from crdt_tpu_torch.core import device_apply
+    from crdt_tpu_torch.net import ypear_crdt
+    from crdt_tpu_torch.obs import (PropagationLedger, Tracer,
+                                    set_propagation, set_tracer,
+                                    state_digest, torch_profile)
+    from crdt_tpu_torch.storage import LogPersistence
+
+    label = f"udp late join [{device}]"
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tracer = set_tracer(Tracer(enabled=True))
+    set_propagation(PropagationLedger())
+    secs: dict = {}
+    eps: dict = {}
+    boot, eps["R"] = udp_router(1, rendezvous=True)
+    ra, eps["A"] = udp_router(2, bootstrap=[boot.addr])
+    rb, eps["B"] = udp_router(3, bootstrap=[boot.addr])
+    routers = {"R": boot, "A": ra, "B": rb}
+
+    def expect(what: str, **want) -> dict:
+        counts = kernels.launch_counts()
+        full = {name: 0 for name in counts}
+        if on_card:
+            full.update(want)
+        if counts != full:
+            raise AssertionError(f"{label}: {what} launched {counts}, "
+                                 f"want {full}")
+        return counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/a.kvlog"
+        log_ = LogPersistence(path)
+        log_.store_updates("doc", blobs)
+        log_.close()
+
+        # ---- A restarts from its log: one device round
+        a_seen: dict = {}
+        sync()
+        kernels.reset_launches()
+        d0 = packed_mod.device_dispatch_count
+        t0 = time.perf_counter()
+        with capture_kernel_inputs(a_seen, (packed_mod, "stream_scatter")):
+            a = ypear_crdt(ra, topic="doc", client_id=UDP_A,
+                           merge_mode="resident", device=device,
+                           persistence=LogPersistence(path))
+        sync()
+        secs["A restart"] = time.perf_counter() - t0
+        expect("A's restart", stream_scatter=1)
+        if on_card and packed_mod.device_dispatch_count - d0 != 1:
+            raise AssertionError(f"{label}: A's restart took "
+                                 f"{packed_mod.device_dispatch_count - d0}"
+                                 " device rounds")
+        if json.dumps(dict(a.c), sort_keys=True) != want_cache:
+            raise AssertionError(f"{label}: A's c != the cold device route")
+        t0 = time.perf_counter()
+        pump_repair([boot, ra], lambda: boot.public_key in ra.peers,
+                    redial([ra], boot), timeout_s=30.0)
+        secs["A joins R"] = time.perf_counter() - t0
+
+        # ---- B joins through R alone and gets A's state over UDP
+        answers: list = []
+        wire: list = []
+        applies: list = []
+        a_encode = a.doc.encode_state_as_update
+
+        def timed_encode(sv=None):
+            t = time.perf_counter()
+            diff = a_encode(sv)
+            answers.append({"s": time.perf_counter() - t,
+                            "bytes": len(diff), "end": time.perf_counter(),
+                            "head": diff[:256]})
+            return diff
+
+        raw_send = eps["A"]._inner.send
+
+        def wire_send(ip, port, data):
+            if len(data) > 8 * UDP_FRAGMENT:
+                wire.append({"bytes": len(data), "kind": data[0],
+                             "frame": data})
+            return raw_send(ip, port, data)
+
+        a.doc.encode_state_as_update = timed_encode
+        eps["A"]._inner.send = wire_send
+        passes: list = []
+        rebuild = _rebuild_spy(device_apply, passes)
+        b_seen: dict = {}
+        sync()
+        kernels.reset_launches()
+        t_join = time.perf_counter()
+        try:
+            with capture_kernel_inputs(b_seen, (deleteset, "ds_mask")):
+                b = ypear_crdt(rb, topic="doc", client_id=UDP_B,
+                               merge_mode="device", device=device,
+                               probe_retry_s=UDP_JOIN_PROBE_RETRY_S)
+                b_apply = b.doc.apply_updates
+
+                def timed_apply(datas, origin="remote"):
+                    t = time.perf_counter()
+                    b_apply(datas, origin)
+                    sync()
+                    applies.append({"start": t, "s": time.perf_counter() - t,
+                                    "bytes": sum(map(len, datas))})
+
+                b.doc.apply_updates = timed_apply
+                pump_repair(list(routers.values()),
+                            lambda: b.synced
+                            and b.state_vector() == a.state_vector(),
+                            redial([ra, rb], boot), timeout_s=120.0)
+            sync()
+        finally:
+            device_apply._rebuild_kernel = rebuild
+            del a.doc.encode_state_as_update
+            eps["A"]._inner.send = raw_send
+        secs["B join"] = time.perf_counter() - t_join
+        del b.doc.apply_updates
+        expect("B's join", ds_mask=1)
+        if passes != [(n_ops, True, torch.device(device).type)]:
+            raise AssertionError(f"{label}: B's join rebuilt {passes}")
+        big = [w for w in wire if w["bytes"] >= answers[0]["bytes"]]
+        if not big or any(w["kind"] != 1 for w in big) or any(
+                ans["head"] in w["frame"] for ans in answers for w in big):
+            raise AssertionError(f"{label}: A's answer did not leave as a "
+                                 "sealed envelope")
+        frags = [-(-w["bytes"] // UDP_FRAGMENT) for w in big]
+        for name, rep in (("A", a), ("B", b)):
+            if json.dumps(dict(rep.c), sort_keys=True) != want_cache:
+                raise AssertionError(f"{label}: {name}'s c != the cold "
+                                     "device route")
+        first = applies[0]
+        split = {"answer encode": answers[0]["s"],
+                 "transfer": first["start"] - answers[0]["end"],
+                 "rebuild": first["s"]}
+        log(f"{label}: A restarted from a native log of {len(blobs)} "
+            f"updates in {secs['A restart']:.3f} s (one device round, one "
+            f"stream_scatter launch); B joined through R alone in "
+            f"{secs['B join']:.3f} s: one rebuild pass over "
+            f"{passes[0][0]} rows, one ds_mask launch; A's and B's c equal "
+            "the cold device route")
+        log(f"{label}: A's answers (encode s, diff bytes) "
+            f"{json.dumps([[x['s'], x['bytes']] for x in answers])}; on the "
+            f"wire (sealed envelope bytes, {UDP_FRAGMENT}-byte fragments) "
+            f"{json.dumps([[w['bytes'], f] for w, f in zip(big, frags)])}; "
+            f"B's applies (s, bytes) "
+            f"{json.dumps([[x['s'], x['bytes']] for x in applies])}; join "
+            f"split s {json.dumps(split)}")
+        log(f"{label}: transport after the join "
+            f"{json.dumps(udp_endpoints(eps, routers))}")
+
+        # ---- both edit under the faults, then converge
+        t0 = time.perf_counter()
+        for n in range(4):
+            mixed_ops(a, 0, 50, start=50 * n)
+            mixed_ops(b, 1, 50, start=50 * n)
+            for _ in range(20):
+                for r in routers.values():
+                    r.poll()
+        repairs = pump_repair(list(routers.values()),
+                              lambda: a.state_vector() == b.state_vector()
+                              and a.state_vector().get(UDP_B) >= 200
+                              and b.state_vector().get(UDP_A) >= 200,
+                              anti_entropy([a, b]), timeout_s=60.0)
+        secs["edits"] = time.perf_counter() - t0
+
+        def digests() -> tuple:
+            """A's and B's ``state_digest``: B's own, and A's through a
+            fresh device-merge document fed A's full state (a resident
+            document's full state leaves out the tombstones of
+            overwritten map entries, as the reference's does, so its own
+            bytes differ from an engine's for the same document)."""
+            canon = Crdt(UDP_CANON, device_merge=True, device=device)
+            canon.apply_updates([a.encode_state_as_update()])
+            return state_digest(canon), state_digest(b.doc)
+
+        t0 = time.perf_counter()
+        da, db = digests()
+        secs["digests"] = time.perf_counter() - t0
+        if da != db or dict(a.c) != dict(b.c):
+            raise AssertionError(f"{label}: A and B diverged after edits "
+                                 f"({da} != {db})")
+
+        # ---- one device round of A under torch_profile
+        replay = a.doc._replay
+        replay.device_min_rows = 1
+        prof_dir = f"{tmp}/profile"
+        profiled: list = []
+        a_apply = a.doc.apply_updates
+
+        def profiled_apply(datas, origin="remote"):
+            if profiled:
+                return a_apply(datas, origin)
+            with torch_profile(prof_dir):
+                r0 = packed_mod.device_dispatch_count
+                a_apply(datas, origin)
+                sync()
+            profiled.append(packed_mod.device_dispatch_count - r0)
+
+        a.doc.apply_updates = profiled_apply
+        try:
+            mixed_ops(b, 1, 5, start=200)
+            pump_repair(list(routers.values()),
+                        lambda: a.state_vector() == b.state_vector(),
+                        anti_entropy([a, b]), timeout_s=30.0)
+        finally:
+            del a.doc.apply_updates
+            replay.device_min_rows = None
+        traces = sorted(Path(prof_dir).glob("*.pt.trace.json"))
+        if profiled != [1] or len(traces) != 1:
+            raise AssertionError(f"{label}: profiled rounds {profiled}, "
+                                 f"traces {traces}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        names = {e.get("name") for e in events}
+        ranges = ("crdt.incremental.dispatch", "crdt.incremental.readback")
+        if not set(ranges) <= names:
+            raise AssertionError(f"{label}: the trace lacks {ranges}")
+        kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+        if digests()[0] != state_digest(b.doc) or dict(a.c) != dict(b.c):
+            raise AssertionError(f"{label}: A and B diverged after the "
+                                 "profiled round")
+        log(f"{label}: both edited 200 ops (mixed) under the faults and "
+            f"converged to one state_digest {da} in {secs['edits']:.3f} s "
+            f"({repairs} repair rounds; A's own resident bytes "
+            f"{state_digest(a.doc)}); one device round of A under "
+            f"torch_profile: {traces[0].stat().st_size} bytes of trace with "
+            f"{', '.join(ranges)}; {kernel_events} kernel events (not "
+            "asserted: the profiler may lose device activities)")
+        log(f"{label}: transport at the end "
+            f"{json.dumps(udp_endpoints(eps, routers))}; seconds "
+            f"{json.dumps(secs)}")
+        counters = {k: v for k, v in tracer.report()["counters"].items()
+                    if k.startswith("device.")}
+        if any(counters.values()):
+            raise AssertionError(f"{label}: the failure ladder ran: "
+                                 f"{counters}")
+        for r in routers.values():
+            r.close()
+        set_tracer(Tracer(enabled=False))
+    if not on_card:
+        return {}
+    for args in a_seen["stream_scatter"]:
+        hold_kernel("stream_scatter", *args)
+    for args in b_seen["ds_mask"]:
+        hold_kernel("ds_mask", *args)
+    scatter = [[int(p.shape[0]), n] for p, n in a_seen["stream_scatter"]]
+    mask = [[int(x[0].shape[0]), int(x[3].shape[0])]
+            for x in b_seen["ds_mask"]]
+    log(f"{label}: stream_scatter (B, n_out) {scatter} and ds_mask (N, D) "
+        f"{mask} == plain on the run's own inputs")
+    return {"stream_scatter": a_seen["stream_scatter"],
+            "ds_mask": b_seen["ds_mask"]}
+
+
+def udp_nat_relay(torch, kernels, device: str = "cuda") -> None:
+    """Phase 12 (b): two resident replicas on the card behind symmetric
+    NATs in a ``NatFabric`` with port prediction off, so they converge
+    only through the rendezvous relay (the reference's
+    ``TestRelayFallback::test_converges_via_relay_with_prediction_disabled``
+    setup). A's rounds all run on the card; one of them runs under a
+    ``DeviceFaultPlan(fail_attempts=2)``: the ladder retries, then takes
+    the host rung, and A still ends equal to the unfaulted B; the relayed
+    leg shows in the propagation ledger."""
+    from crdt_tpu_torch.guard import DeviceFaultPlan
+    from crdt_tpu_torch.net import (NatFabric, SymmetricNat, UdpRouter,
+                                    install_nat, pump_until, ypear_crdt)
+    from crdt_tpu_torch.obs import (PropagationLedger, Tracer,
+                                    get_propagation, set_propagation,
+                                    set_tracer, state_digest)
+
+    label = f"udp NAT relay [{device}]"
+    tracer = set_tracer(Tracer(enabled=True))
+    set_propagation(PropagationLedger())
+    fabric = NatFabric()
+    boot = UdpRouter(rendezvous=True)
+    install_nat(boot, fabric)
+    kw = {"bootstrap": [boot.addr], "dial_retry_s": 0.05,
+          "port_prediction": False, "relay_after_s": 0.3}
+    ra, rb = UdpRouter(**kw), UdpRouter(**kw)
+    install_nat(ra, fabric, SymmetricNat(21000))
+    install_nat(rb, fabric, SymmetricNat(23000))
+    routers = [boot, ra, rb]
+    t0 = time.perf_counter()
+    a = ypear_crdt(ra, topic="room", client_id=1, merge_mode="resident",
+                   device=device, device_min_rows=1, probe_retry_s=0.1,
+                   anti_entropy_s=0.2)
+    b = ypear_crdt(rb, topic="room", client_id=2, merge_mode="resident",
+                   device=device, probe_retry_s=0.1, anti_entropy_s=0.2)
+
+    def both_hold(n: int):
+        return lambda: (a.state_vector().get(2) >= n
+                        and b.state_vector().get(1) >= 20
+                        and a.state_vector() == b.state_vector())
+
+    mixed_ops(a, 0, 20)
+    mixed_ops(b, 1, 20)
+    pump_until(routers, both_hold(20), timeout_s=30.0)
+    pa = ra._peers[rb.public_key]
+    if pa.direct or pa.relay != boot.public_key or \
+            not boot.stats["relay_frames_forwarded"]:
+        raise AssertionError(f"{label}: not relayed (direct {pa.direct}, "
+                             f"relay {pa.relay}, stats {boot.stats})")
+    scatter0 = kernels.launch_counts()["stream_scatter"]
+    with DeviceFaultPlan(fail_attempts=2) as plan:
+        mixed_ops(b, 1, 10, start=20)
+        pump_until(routers, both_hold(30), timeout_s=30.0)
+    mixed_ops(b, 1, 10, start=30)
+    mixed_ops(a, 0, 10, start=20)
+    pump_until(routers, lambda: both_hold(40)()
+               and a.state_vector().get(1) >= 30, timeout_s=30.0)
+    wall = time.perf_counter() - t0
+    counters = tracer.counters("device.")
+    routes = get_propagation().report()["hop_lag_by_route"]
+    set_tracer(Tracer(enabled=False))
+    if plan.fired != 2 or counters.get("device.retries", 0) < 1 or \
+            counters.get('device.fallback_by{route="host"}', 0) < 1:
+        raise AssertionError(f"{label}: plan fired {plan.fired}, ladder "
+                             f"{counters}")
+    if state_digest(a.doc) != state_digest(b.doc) or dict(a.c) != dict(b.c):
+        raise AssertionError(f"{label}: the faulted A != the unfaulted B")
+    if "relayed" not in routes:
+        raise AssertionError(f"{label}: no relayed leg in the ledger: "
+                             f"{sorted(routes)}")
+    scatters = kernels.launch_counts()["stream_scatter"] - scatter0
+    log(f"{label}: A and B converged through the rendezvous relay "
+        f"({boot.stats['relay_frames_forwarded']} frames, "
+        f"{boot.stats['relay_bytes_forwarded']} bytes forwarded) in "
+        f"{wall:.3f} s; a DeviceFaultPlan(fail_attempts=2) round climbed "
+        f"the ladder {json.dumps(counters)}; A's later device rounds "
+        f"launched stream_scatter {scatters} times; A == B "
+        f"(state_digest {state_digest(a.doc)}); ledger routes "
+        f"{json.dumps({r: h['count'] for r, h in routes.items()})}")
+    for r in routers:
+        r.close()
+
+
+def udp_fleet(torch, device: str = "cuda") -> None:
+    """Phase 12 (c): bench.py's ``--fleet-trace`` leg on the card: three
+    OS processes (this script again, ``--udp-child``), each a resident
+    port replica on the card over a ``UdpRouter`` under the schedule,
+    children 1 and 2 permanently partitioned (relay-forced), each
+    serving an ``ObsHTTPServer``. A ``FleetCollector`` here scrapes
+    them live and holds bench.py's acceptance (bench.py:3463-3508)."""
+    import os
+    import subprocess
+    import tempfile
+
+    from crdt_tpu_torch.obs import FleetCollector
+
+    label = f"udp fleet [{device}]"
+    n_procs = 3
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:
+        ports = _free_ports(n_procs, udp=True)
+        obs_ports = _free_ports(n_procs, udp=False)
+        procs = []
+        logs = []
+        try:
+            for idx in range(n_procs):
+                cfg = {"idx": idx, "seed": UDP_SEED, "ports": ports,
+                       "obs_ports": obs_ports, "outdir": outdir,
+                       "ops": UDP_FLEET_OPS,
+                       "val_bytes": UDP_FLEET_VAL_BYTES, "device": device}
+                out = open(os.path.join(outdir, f"child_{idx}.log"), "w")
+                logs.append(out)
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--udp-child", json.dumps(cfg)],
+                    cwd=ROOT, stdout=out, stderr=subprocess.STDOUT))
+            done_paths = [os.path.join(outdir, f"done_{i}.json")
+                          for i in range(n_procs)]
+            deadline = time.monotonic() + 150.0
+            while time.monotonic() < deadline and not all(
+                    os.path.exists(p) for p in done_paths):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.05)
+            missing = [p for p in done_paths if not os.path.exists(p)]
+            if missing:
+                for out in logs:
+                    out.flush()
+                tails = [Path(out.name).read_text()[-1500:] for out in logs]
+                raise AssertionError(f"{label}: children incomplete "
+                                     f"{missing}, rc "
+                                     f"{[p.poll() for p in procs]}, logs "
+                                     f"{tails}")
+            t_done = time.perf_counter()
+            col = FleetCollector(events_limit=16384)
+            for idx in range(n_procs):
+                col.add_proc(f"p{idx}", f"http://127.0.0.1:{obs_ports[idx]}")
+            ok = col.scrape()
+            if not all(ok.values()):
+                raise AssertionError(f"{label}: live scrape failed: {ok}")
+            report = col.fleet_report()
+            merged = col.merged_perfetto()
+        finally:
+            with open(os.path.join(outdir, "stop"), "w") as f:
+                f.write("done")
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            for out in logs:
+                out.close()
+        rcs = [p.returncode for p in procs]
+        dones = [json.loads(Path(p).read_text()) for p in done_paths]
+        child_logs = [Path(out.name).read_text()[-600:] for out in logs]
+
+    # bench.py's acceptance, and every child on the card
+    if rcs != [0] * n_procs:
+        raise AssertionError(f"{label}: children exited {rcs}: {child_logs}")
+    digests = {d["digest"] for d in dones}
+    paths = report["paths"]
+    routes = set(paths["routes"])
+    ctx_bytes = sum(d["ledger"]["context_bytes"] for d in dones)
+    upd_bytes = sum(d["ledger"]["traced_update_bytes"] for d in dones)
+    overhead = ctx_bytes / upd_bytes if upd_bytes else 0.0
+    relay_forwards = sum(d["relay"].get("relay_frames_forwarded", 0)
+                         for d in dones)
+    pids = {e.get("pid") for e in merged["traceEvents"]
+            if isinstance(e, dict)}
+    advice = report.get("advice") or []
+    checks = {
+        "one digest": len(digests) == 1,
+        "traced": paths["traced_recvs"] > 0,
+        "pair_rate == 1.0": paths["pair_rate"] == 1.0,
+        "routes": {"direct", "relayed", "sync_answer",
+                   "anti_entropy"} <= routes,
+        "origin procs": sorted(paths["origin_procs"]) == ["p0", "p1", "p2"],
+        "overhead < 5%": overhead < 0.05,
+        "relayed frames": relay_forwards > 0,
+        "three pids": len(pids) >= n_procs,
+        "advice": any(a.get("proc") == "p1"
+                      and a.get("action") == "rebalance_away"
+                      for a in advice),
+        "on the device": all(
+            d["device"] == device
+            and (d["launches"]["stream_scatter"] > 0) == (device == "cuda")
+            for d in dones),
+    }
+    log(f"{label}: {n_procs} children converged and were scraped live in "
+        f"{t_done - t_start:.3f} s (the whole leg "
+        f"{time.perf_counter() - t_start:.3f} s): digests {sorted(digests)}, "
+        f"pair_rate {paths['pair_rate']} over {paths['traced_recvs']} traced "
+        f"receives, routes {json.dumps(paths['routes'])}, context overhead "
+        f"{overhead:.5f}, relay frames {relay_forwards}, Perfetto pids "
+        f"{sorted(p for p in pids if isinstance(p, int))}, advice rows "
+        f"{len(advice)}; children's kernel launches "
+        f"{json.dumps([d['launches'] for d in dones])}, transports "
+        f"{json.dumps([d['transport'] for d in dones])}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{label}: acceptance failed: {failed}")
+
+
+def udp_child(arg: str) -> int:
+    """One child of :func:`udp_fleet` (bench.py:3148-3344,
+    ``fleet_trace_child``, on the port): a resident replica on
+    ``cfg["device"]`` (the parent asks for the card) over a
+    ``UdpRouter`` under the schedule, tracing and recording on, serving
+    its obs surfaces over HTTP while it edits and converges; children 1
+    and 2 never hear each other directly. Writes ``done_<idx>.json`` and
+    stays scrapeable until the parent's stop file appears."""
+    import os
+
+    import numpy as np
+
+    cfg = json.loads(arg)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    idx = int(cfg["idx"])
+    if cfg["device"] == "cuda" and not torch.cuda.is_available():
+        print(json.dumps({"child": idx, "error": "no card"}),
+              file=sys.stderr)
+        return 2
+    ports = cfg["ports"]
+    outdir = cfg["outdir"]
+    n_ops = int(cfg["ops"])
+    val_bytes = int(cfg["val_bytes"])
+
+    from crdt_tpu_torch.net import (FaultSchedule, Partition, Replica,
+                                    install_faults)
+    from crdt_tpu_torch.obs import (Controller, FlightRecorder,
+                                    ObsHTTPServer, PropagationLedger,
+                                    TickTimeline, Tracer, get_propagation,
+                                    get_recorder, get_timeline,
+                                    set_propagation, set_recorder,
+                                    set_timeline, set_tracer, state_digest)
+    from crdt_tpu_torch.ops import kernels
+
+    tracer = set_tracer(Tracer(enabled=True))
+    set_recorder(FlightRecorder(enabled=True, capacity=16384))
+    set_propagation(PropagationLedger())
+    set_timeline(TickTimeline(enabled=True))
+    part = None
+    if idx in (1, 2):
+        part = Partition({int(ports[1])}, {int(ports[2])})
+    router, ep = udp_router(
+        int(cfg["seed"]) % 200 + 1 + idx, FaultSchedule(
+            int(cfg["seed"]), **UDP_FAULTS, partition=part),
+        port=int(ports[idx]), rendezvous=idx == 0,
+        bootstrap=[] if idx == 0 else [("127.0.0.1", int(ports[0]))])
+    rep = Replica(router, topic="fleet", client_id=101 + idx,
+                  anti_entropy_s=0.2, batch_incoming=True,
+                  merge_mode="resident", device=cfg["device"],
+                  device_min_rows=1)
+    ctrl = None
+    if idx == 1:
+        # child 1's control plane: a synthetic flood squeezes a budget,
+        # whose advice row the parent's collector must see
+        ctrl = Controller(cooldown_ticks=2)
+        for ct in range(4):
+            ctrl.observe({
+                "tick": ct,
+                "budget": {"max_bytes": 2048, "max_updates": 4},
+                "tenants": {"flood!": {"burn": 1.0, "shed": 8 * (ct + 1),
+                                       "pending_bytes": 4096}},
+            })
+    obs = ObsHTTPServer(port=int(cfg["obs_ports"][idx]),
+                        snapshot_extra=lambda: {
+                            "propagation": get_propagation().report()},
+                        control=ctrl).start()
+
+    def pump_for(seconds: float) -> None:
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            router.poll()
+            time.sleep(0.002)
+
+    # join: both other peers on the topic, synced; the bootstrap hello
+    # is re-dialed until the router hears anyone
+    deadline = time.monotonic() + 60.0
+    next_redial = time.monotonic() + 1.0
+    while len(router.peers_on("fleet")) < 2 or not rep.synced:
+        if time.monotonic() > deadline:
+            print(json.dumps({"child": idx, "error": "join timeout",
+                              "peers": router.peers_on("fleet")}),
+                  file=sys.stderr)
+            return 3
+        router.poll()
+        if idx and not router.peers and time.monotonic() >= next_redial:
+            router.add_peer("127.0.0.1", int(ports[0]))
+            next_redial = time.monotonic() + 1.0
+        time.sleep(0.002)
+
+    # seeded edits, one tick-timeline record an op window
+    rng = np.random.default_rng(int(cfg["seed"]) * 31 + idx)
+    tl = get_timeline()
+    for j in range(n_ops):
+        tl.tick_begin(j, label=f"ops[{idx}]")
+        with tl.phase("edit"):
+            rep.set("m", f"{idx}:{j}", "".join(
+                chr(97 + int(c)) for c in rng.integers(0, 26, val_bytes)))
+        with tl.phase("pump"):
+            pump_for(0.02)
+        tl.tick_end()
+
+    # converge: every child's ops visible here
+    cids = [101, 102, 103]
+    deadline = time.monotonic() + 90.0
+    while not all(rep.doc.state_vector().get(c) >= n_ops for c in cids):
+        if time.monotonic() > deadline:
+            print(json.dumps({"child": idx, "error": "converge timeout",
+                              "sv": {c: rep.doc.state_vector().get(c)
+                                     for c in cids}}), file=sys.stderr)
+            return 4
+        router.poll()
+        time.sleep(0.002)
+    # settle: stop originating repair frames, drain what is in flight
+    rep._next_ae_at = None
+    rep._resync_at = None
+    pump_for(0.5)
+    rep.flush_incoming()
+    if cfg["device"] == "cuda":
+        torch.cuda.synchronize()
+    get_recorder().dump_jsonl(os.path.join(outdir, f"dump_{idx}.jsonl"))
+    done = {
+        "idx": idx,
+        "digest": state_digest(rep.doc),
+        "ledger": get_propagation().report(),
+        "relay": {k: v for k, v in router.stats.items()
+                  if k.startswith("relay")},
+        "counters": tracer.report()["counters"],
+        "device": rep.doc._replay.device.type,
+        "launches": kernels.launch_counts(),
+        "transport": {"failed": ep.failed, "pending": ep.pending,
+                      "faults": dict(ep.stats)},
+    }
+    done_path = os.path.join(outdir, f"done_{idx}.json")
+    with open(done_path + ".tmp", "w") as f:
+        json.dump(done, f)
+    os.replace(done_path + ".tmp", done_path)
+
+    # stay scrapeable until the parent's stop file, then exit clean
+    stop = os.path.join(outdir, "stop")
+    deadline = time.monotonic() + 90.0
+    while not os.path.exists(stop) and time.monotonic() < deadline:
+        router.poll()
+        time.sleep(0.01)
+    obs.stop()
+    router.close()
+    return 0
+
+
 def sync_warnings(torch, run) -> dict:
     """Run ``run()`` on the card under
     ``torch.cuda.set_sync_debug_mode("warn")``: every host sync it
@@ -2579,8 +3357,34 @@ def kernel_rows(torch, kernels, seen: dict, launches: dict,
     if "seg_argmax_scan" in seen:
         client, flags = seen["seg_argmax_scan"][0]
         m = client.numel()
-        rows.append(row("seg_argmax_scan", {"M": m}, (client, flags), None,
-                        3 * 4 * m))
+        # library yardstick: the run ids by one cumsum, then one cummax
+        # of a packed int64 key (run, client + 1, 2^21 - 1 - position)
+        # whose argmax is the larger client, then the earlier position;
+        # right only where each field fits its 21 bits
+        run = torch.cumsum(flags != 0, 0)
+        fits = m <= 1 << 21 and (not m or (
+            int(run[-1]) < 1 << 21 and int(client.min()) >= -1
+            and int(client.max()) + 1 < 1 << 21))
+        library = None
+        if fits:
+            pos = torch.arange(m, dtype=torch.int64, device=client.device)
+
+            def library():
+                r = torch.cumsum(flags != 0, 0)
+                key = (r << 42) | ((client.long() + 1) << 21) \
+                    | ((1 << 21) - 1 - pos)
+                return torch.cummax(key, 0).indices
+
+            got = library().to(torch.int32)
+            if not torch.equal(got, kernels.seg_argmax_scan_plain(client,
+                                                                  flags)):
+                raise AssertionError("seg_argmax_scan: the cumsum + cummax "
+                                     "yardstick != plain")
+        rows.append(row("seg_argmax_scan", {"M": m}, (client, flags),
+                        library, 3 * 4 * m))
+        rows[-1]["library"] = (
+            "cumsum + cummax of a packed int64 key" if fits else
+            "none: the packed key's 21-bit fields do not fit these inputs")
     if "stream_scatter" in seen:
         pos, n_out = seen["stream_scatter"][0]
         bsz = pos.numel()

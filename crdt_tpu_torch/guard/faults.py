@@ -1,38 +1,43 @@
-"""Seeded storage fault adversaries and the shared retry helper.
+"""Seeded storage + device fault adversaries (net/faults.py style).
 
-The port's copy of the storage half of ``crdt_tpu.guard.faults``:
-:class:`DiskFaultSchedule` + :class:`FaultyKv` wrap a
-:class:`crdt_tpu_torch.storage.kv.KvLog` and inject ``ENOSPC`` / ``EIO``
-write failures (seeded probabilities or an explicit write-index set),
-TORN batches (the first half of a multi-op batch lands, then the write
-dies — a store without the native log's atomic batch), and CRASH POINTS
-(a :class:`SimulatedCrash` at the j-th op of the i-th batch, after which
-the wrapper is dead); :func:`retry_with_backoff` is the storage failure
-policy's retry loop (``LogPersistence``).
+The port's copy of ``crdt_tpu.guard.faults``. The network fabric's
+lesson: recovery behavior is only trusted when the adversary is a
+reusable, SEEDED object whose schedule replays identically run to run. This module extends that discipline to the two
+failure domains the network schedule cannot reach:
 
-The reference module's other adversaries — ``FaultyFs`` (the snapshot
-writer's file primitives), ``DeviceFaultPlan``, ``WithholdDeps`` and
-``MigrationCrashPlan`` — are not ported: they stay with ROADMAP.md
-queue A item 7b. The port's device faults are injected through
-:func:`crdt_tpu_torch.ops.device.set_device_fault_hook`.
+- **disk** — :class:`DiskFaultSchedule` + :class:`FaultyKv` wrap a
+  :class:`crdt_tpu_torch.storage.kv.KvLog` and inject ``ENOSPC`` / ``EIO``
+  write failures (seeded probabilities or an explicit write-index
+  set), TORN batches (the first half of a multi-op batch lands, then
+  the write dies — simulating a store without the native log's atomic
+  batch), and CRASH POINTS (a :class:`SimulatedCrash` at the j-th op
+  of the i-th batch, after which the wrapper is dead — the crash-point
+  matrix over ``LogPersistence.compact``/``store_updates`` reopens the
+  real file underneath and proves no acked update is lost).
+  :class:`FaultyFs` extends the same schedule to the snapshot
+  writer's file primitives (write/fsync/rename/unlink), so the
+  round-21 snapshot ALICE matrix kills the writer at every op.
+- **device** — :class:`DeviceFaultPlan` installs itself as the
+  :func:`crdt_tpu_torch.ops.device.set_device_fault_hook` hook and fails the
+  first N guarded dispatch attempts with ``RuntimeError`` (optionally
+  stage-filtered), driving the retry → split → host ladder in
+  :mod:`crdt_tpu_torch.guard.device` without a real dying card.
+- **network** — :class:`WithholdDeps`, the dependency-withholding
+  adversary: a :class:`crdt_tpu_torch.net.faults.FaultSchedule` that drops
+  the first W messages of chosen flows, so later updates arrive first,
+  stash as pending, and (under a pending cap) force evictions that
+  only the SV re-probe path can repair.
 """
 
 from __future__ import annotations
 
 import errno
 import time
-import zlib
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
+from crdt_tpu_torch.net.faults import FaultSchedule, _hash01
 from crdt_tpu_torch.obs.recorder import get_recorder
 from crdt_tpu_torch.obs.tracer import get_tracer
-
-
-def _hash01(*key) -> float:
-    """Stable [0, 1) hash of a tuple of primitives — process-salt-free
-    (unlike ``hash``), so schedules replay across runs (the reference's
-    ``crdt_tpu.net.faults._hash01``)."""
-    return zlib.crc32(repr(key).encode()) / 2**32
 
 
 class SimulatedCrash(BaseException):
@@ -166,6 +171,152 @@ class FaultyKv:
         return getattr(self._inner, name)
 
 
+class FaultyFs:
+    """Snapshot-seam fs adversary (round 21): wraps the
+    :class:`crdt_tpu_torch.storage.snapshot.Fs` primitives and applies a
+    :class:`DiskFaultSchedule` to every MUTATING op — ``write``,
+    ``fsync``, ``rename``, ``fsync_dir``, ``unlink`` — addressed by a
+    single per-op index (the n-th mutating op overall), so
+    ``crash_at=(i, 0)`` kills the writer immediately BEFORE its i-th
+    op and ``torn`` lands half the bytes of a ``write`` before dying.
+    Together the two modes cover every prefix of the snapshot
+    writer's op sequence — the ALICE matrix ``tests/test_snapshot.py``
+    enumerates from a clean run's recorded ``ops`` list. Reads pass
+    through untouched (recovery must see whatever the crash left)."""
+
+    def __init__(self, inner, schedule: DiskFaultSchedule):
+        self._inner = inner
+        self.schedule = schedule
+        self.n = 0
+        self.ops: List[Tuple[str, str]] = []
+        self.dead = False
+        self.stats: Dict[str, int] = {
+            "enospc": 0, "eio": 0, "torn": 0, "crashed": 0,
+        }
+
+    def _gate(self, verb: str, path: str, data: Optional[bytes] = None):
+        if self.dead:
+            raise SimulatedCrash("fs is dead (post-crash)")
+        n = self.n
+        self.n += 1
+        self.ops.append((verb, path))
+        kind = self.schedule.decide(n)
+        rec = get_recorder()
+        if kind and rec.enabled:
+            rec.record("fault.fs", kind=kind, op=n, verb=verb)
+        if kind == "crash":
+            # crash BEFORE the op applies (torn covers the mid-write
+            # states); the fs is dead from here on
+            self.stats["crashed"] += 1
+            self.dead = True
+            raise SimulatedCrash(f"crash at fs op {n} ({verb})")
+        if kind == "enospc":
+            self.stats["enospc"] += 1
+            raise OSError(errno.ENOSPC, "injected: no space left")
+        if kind == "eio":
+            self.stats["eio"] += 1
+            raise OSError(errno.EIO, "injected: I/O error")
+        if kind == "torn":
+            self.stats["torn"] += 1
+            if verb == "write" and data:
+                self._inner.write(path, data[: len(data) // 2])
+            raise OSError(errno.EIO, "injected: torn write")
+        return None
+
+    def write(self, path: str, data: bytes) -> None:
+        self._gate("write", path, data)
+        self._inner.write(path, data)
+
+    def fsync(self, path: str) -> None:
+        self._gate("fsync", path)
+        self._inner.fsync(path)
+
+    def rename(self, src: str, dst: str) -> None:
+        self._gate("rename", src)
+        self._inner.rename(src, dst)
+
+    def fsync_dir(self, path: str) -> None:
+        self._gate("fsync_dir", path)
+        self._inner.fsync_dir(path)
+
+    def unlink(self, path: str) -> None:
+        self._gate("unlink", path)
+        self._inner.unlink(path)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class DeviceFaultPlan:
+    """Scripted device-fault injector for the guarded-dispatch hook.
+
+    Fails the first ``fail_attempts`` guarded attempts whose stage
+    matches ``stages`` (``None`` = every stage) with ``RuntimeError``,
+    then heals. Use as a context manager (or ``install()`` /
+    ``uninstall()``) — the hook slot in :mod:`crdt_tpu_torch.ops.device` is
+    process-global."""
+
+    def __init__(self, fail_attempts: int = 2,
+                 stages: Optional[Iterable[str]] = None):
+        self.fail_attempts = fail_attempts
+        self.stages = set(stages) if stages is not None else None
+        self.fired = 0
+        self._old = None
+
+    def __call__(self, stage: str, attempt: int) -> None:
+        if self.stages is not None and stage not in self.stages:
+            return
+        if self.fired < self.fail_attempts:
+            self.fired += 1
+            raise RuntimeError(
+                f"injected device fault #{self.fired} at {stage!r} "
+                f"(attempt {attempt})"
+            )
+
+    def install(self) -> "DeviceFaultPlan":
+        from crdt_tpu_torch.ops.device import set_device_fault_hook
+
+        self._old = set_device_fault_hook(self)
+        return self
+
+    def uninstall(self) -> None:
+        from crdt_tpu_torch.ops.device import set_device_fault_hook
+
+        set_device_fault_hook(self._old)
+        self._old = None
+
+    def __enter__(self) -> "DeviceFaultPlan":
+        return self.install()
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()
+
+
+class WithholdDeps(FaultSchedule):
+    """Dependency-withholding adversary: DROP the first ``withhold``
+    messages of each flow in ``flows`` (``(src_port, dst_port)``
+    pairs), then behave like the base schedule. The receiver sees
+    later updates before their dependencies, stashes them pending, and
+    — under a pending cap — evicts; only the SV re-probe path (the
+    withheld sender answers a ready probe with the full diff) repairs
+    the gap, which is exactly the recovery the chaos tests pin."""
+
+    def __init__(self, seed: int = 0, *,
+                 flows: Iterable[Tuple[int, int]] = (),
+                 withhold: int = 2, **kw):
+        super().__init__(seed, **kw)
+        self.flows = set(flows)
+        self.withhold = withhold
+        self.withheld = 0
+
+    def decide(self, src: int, dst: int, n: int) -> dict:
+        if (src, dst) in self.flows and n < self.withhold:
+            self.withheld += 1
+            return {"drop": True, "dup": False, "delay": 0,
+                    "corrupt": False, "withheld": True}
+        return super().decide(src, dst, n)
+
+
 def retry_with_backoff(fn, *, retries: int, backoff_s: float,
                        counter: Optional[str] = None):
     """Run ``fn`` with up to ``retries`` retries on ``OSError``,
@@ -182,3 +333,28 @@ def retry_with_backoff(fn, *, retries: int, backoff_s: float,
             if counter:
                 get_tracer().count(counter)
             time.sleep(backoff_s * (2 ** attempt))
+
+
+class MigrationCrashPlan:
+    """Process-kill-at-step-k for the fleet migration ladder
+    (round 24): :meth:`check` is called at every migration step
+    boundary (``fleet/migration.py``); the k-th occurrence of a
+    scheduled step raises :class:`SimulatedCrash` — the chaos
+    harness catches it and kills that node, exactly like the disk
+    matrix's ``crash_at``. Deterministic by construction: occurrence
+    counts, no clocks, no randomness."""
+
+    def __init__(self, kill_at: Optional[dict] = None):
+        # step name -> 1-based occurrence at which to die
+        self.kill_at = dict(kill_at or {})
+        self.seen: dict = {}
+        self.fired: list = []
+
+    def check(self, step: str) -> None:
+        n = self.seen.get(step, 0) + 1
+        self.seen[step] = n
+        k = self.kill_at.get(step)
+        if k is not None and n == k:
+            self.fired.append(step)
+            raise SimulatedCrash(
+                "migration step %s occurrence %d" % (step, n))

@@ -72,12 +72,12 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch.codec import native, v1
-from crdt_tpu_torch.core.engine import evict_deepest
 from crdt_tpu_torch.core.ids import DeleteSet, StateVector
 from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_ANY, K_GC, K_TYPE, TYPE_MAP
 from crdt_tpu_torch.guard.device import dispatch_guarded
 from crdt_tpu_torch.models.replay import rows_visible
+from crdt_tpu_torch.obs.profiling import device_annotation
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed as pk
 from crdt_tpu_torch.ops.device import (
@@ -1261,9 +1261,11 @@ class IncrementalReplay:
     def _evict_pending(self) -> None:
         """Shrink the stash to ``pending_limit``: drop the ids deepest
         in their own client's queue (the shared fairness/recovery
-        policy — :func:`crdt_tpu_torch.core.engine.evict_deepest`) and
+        policy — :func:`crdt_tpu_torch.guard.limits.evict_deepest`) and
         record the evicted ranges for the replica's targeted
         re-probe."""
+        from crdt_tpu_torch.guard.limits import evict_deepest
+
         evicted, ranges = evict_deepest(
             list(self._pending), self.pending_limit
         )
@@ -1741,7 +1743,8 @@ class IncrementalReplay:
             # the next healthy device round (the same contract the
             # crossover uses). A kernel error, a CUDA error or an
             # out-of-memory is not caught: it propagates out of apply().
-            with get_tracer().span("incremental.dispatch"):
+            with get_tracer().span("incremental.dispatch"), \
+                    device_annotation("crdt.incremental.dispatch"):
                 res = dispatch_guarded(
                     "incremental.converge", _dispatch, host=lambda: None
                 )
@@ -1754,7 +1757,8 @@ class IncrementalReplay:
                 host_segs.extend(dev_segs)
                 dev_segs = []
         if dev_segs:
-            with get_tracer().span("incremental.readback"):
+            with get_tracer().span("incremental.readback"), \
+                    device_annotation("crdt.incremental.readback"):
                 self._read_back(res, tpad)
         # host rounds: no device work at all — the unspliced tail
         # waits for the next device round (see the crossover comment).

@@ -25,9 +25,11 @@ contexts:
   ``propagation.traced_update_bytes``; gauge
   ``propagation.wire_overhead_ratio``).
 
-The reference's offline analysis core (``pair_latency``,
-``reconstruct_paths``, ``correlate_divergences``) serves its ``obsq``
-CLI and fleet collector, which are not ported.
+- **Analysis core** (:func:`pair_latency`, :func:`reconstruct_paths`,
+  :func:`correlate_divergences`): the tid-pairing / path-completeness
+  / divergence-correlation logic of the live fleet collector
+  (:mod:`crdt_tpu_torch.obs.collector`), the reference's own: events
+  are plain recorder dicts, so port and reference dumps pair alike.
 
 Knobs: ``CRDT_TPU_TRACE_SAMPLE`` (0..1, default 1 — deterministic
 per-tid sampling, crc32-derived so every replica agrees on which tids
@@ -403,3 +405,215 @@ def set_propagation(ledger: PropagationLedger) -> PropagationLedger:
     global _ledger
     _ledger = ledger
     return ledger
+
+
+# ---------------------------------------------------------------------------
+# analysis core — shared by tools/obsq.py (offline dumps) and the
+# fleet collector (live scrapes); events are plain recorder dicts
+# ---------------------------------------------------------------------------
+
+
+def _percentiles(sorted_vals: List[float]) -> Dict[str, float]:
+    def q(p: float) -> float:
+        if not sorted_vals:
+            return 0.0
+        i = min(len(sorted_vals) - 1,
+                max(0, int(p * len(sorted_vals) + 0.5) - 1))
+        return sorted_vals[i]
+
+    return {
+        "count": len(sorted_vals),
+        "p50_s": q(0.50),
+        "p90_s": q(0.90),
+        "p99_s": q(0.99),
+        "max_s": sorted_vals[-1] if sorted_vals else 0.0,
+    }
+
+
+def _tid_key(ev: Dict[str, Any]) -> Optional[Tuple[Any, Any]]:
+    t = ev.get("tid")
+    if isinstance(t, (list, tuple)) and len(t) >= 2:
+        a, b = t[0], t[1]
+        # events carry wire tids verbatim, so elements can be any
+        # JSON shape: only hashable scalars make a pairing key (an
+        # unhashable hostile tid must not TypeError out of obsq or
+        # a live /fleet request)
+        if isinstance(a, (int, float, str)) and \
+                isinstance(b, (int, float, str)):
+            return (a, b)
+    return None
+
+
+# every ORIGIN-frame event kind (each stamps a fresh tid + context):
+# broadcasts, sync-answer diffs, anti-entropy deltas — receives pair
+# back against any of them
+ORIGIN_KINDS = frozenset({"update.send", "sync.answer", "ae.delta"})
+
+
+def pair_latency(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """send/recv pairing by trace id across every loaded source: the
+    cross-process propagation story. One send may fan out to many
+    receivers; every (send, recv) pair contributes one latency. The
+    round-19 additions: per-ROUTE leg-lag percentiles decomposed from
+    the carried path records, and the path-reconstruction stats the
+    fleet acceptance gate reads."""
+    sends: Dict[tuple, float] = {}
+    for e in events:
+        t = e.get("tid")
+        key = _tid_key(e)
+        if e.get("kind") in ORIGIN_KINDS and key is not None \
+                and isinstance(t, (list, tuple)) and len(t) >= 3:
+            try:
+                sends.setdefault(key, float(t[2]))
+            except (TypeError, ValueError):
+                continue
+    lats: List[float] = []
+    unmatched_recv = 0
+    hops: Dict[str, int] = {}
+    route_legs: Dict[str, List[float]] = {}
+    for e in events:
+        if e.get("kind") != "update.recv":
+            continue
+        key = _tid_key(e)
+        if key is not None and key in sends and isinstance(
+                e.get("ts"), (int, float)):
+            lats.append(max(0.0, e["ts"] - sends[key]))
+        else:
+            unmatched_recv += 1
+        h = e.get("hop")
+        hkey = str(h) if isinstance(h, int) else "unknown"
+        hops[hkey] = hops.get(hkey, 0) + 1
+        path = e.get("path")
+        t = e.get("tid")
+        if (isinstance(path, list) and path
+                and isinstance(t, (list, tuple)) and len(t) >= 3
+                and isinstance(e.get("ts"), (int, float))
+                and isinstance(t[2], (int, float))):
+            for _, route, lag in hop_legs(path, float(t[2]), e["ts"]):
+                route_legs.setdefault(route, []).append(lag)
+    lats.sort()
+    paths = reconstruct_paths(events)
+    return {
+        "sends": len(sends),
+        "pairs": len(lats),
+        "unmatched_recv": unmatched_recv,
+        "propagation": _percentiles(lats),
+        "hops": dict(sorted(hops.items())),
+        "routes": {
+            r: _percentiles(sorted(v))
+            for r, v in sorted(route_legs.items())
+        },
+        "paths": paths,
+    }
+
+
+def reconstruct_paths(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Path completeness across sources: a traced receive is COMPLETE
+    when its carried path parses, its hop count matches the path
+    depth, every leg carries a known route tag, and its origin tid
+    pairs back to an ``update.send`` in some loaded source. The
+    ``pair_rate`` (complete / traced receives) is the fleet-leg
+    acceptance number — 1.0 means every sampled frame's full path
+    reconstructs across processes."""
+    send_tids = set()
+    origin_procs = set()
+    for e in events:
+        if e.get("kind") in ORIGIN_KINDS:
+            k = _tid_key(e)
+            if k is not None:
+                send_tids.add(k)
+                src = e.get("_src", e.get("proc"))
+                if src is not None:
+                    origin_procs.add(str(src))
+    traced = complete = 0
+    routes: Dict[str, int] = {}
+    incomplete: List[Dict[str, Any]] = []
+    for e in events:
+        if e.get("kind") != "update.recv":
+            continue
+        path = e.get("path")
+        if not isinstance(path, list) or not path:
+            continue
+        traced += 1
+        ok = True
+        seen_routes = []
+        for hop in path:
+            if (not isinstance(hop, (list, tuple)) or len(hop) < 3
+                    or hop[1] not in _ROUTE_CODE):
+                ok = False
+                break
+            seen_routes.append(hop[1])
+        hop_field = e.get("hop")
+        if ok and isinstance(hop_field, int) and hop_field != len(path):
+            ok = False
+        if ok and _tid_key(e) not in send_tids:
+            ok = False
+        if ok:
+            complete += 1
+            for r in seen_routes:
+                routes[r] = routes.get(r, 0) + 1
+        elif len(incomplete) < 8:
+            incomplete.append({
+                "tid": e.get("tid"), "path": path,
+                "src": e.get("_src", e.get("proc")),
+            })
+    return {
+        "sends": len(send_tids),
+        "traced_recvs": traced,
+        "complete": complete,
+        "pair_rate": (complete / traced) if traced else 0.0,
+        "routes": dict(sorted(routes.items())),
+        "origin_procs": sorted(origin_procs),
+        "incomplete_sample": incomplete,
+    }
+
+
+def correlate_divergences(events: List[Dict[str, Any]],
+                          context: int = 8) -> Dict[str, Any]:
+    """Correlate divergence events across the loaded sources: for
+    each, the trailing ``context`` events per source on the same
+    topic before the divergence, with digests surfaced for eyeballing
+    which update the two sides last disagreed on. (Moved verbatim
+    from the round-18 ``obsq diverge`` — offline dumps and live
+    collector snapshots share this one implementation.)"""
+    out: List[Dict[str, Any]] = []
+    divs = [e for e in events if e.get("kind") == "divergence"]
+    for div in divs:
+        topic = div.get("topic")
+        ts = div.get("ts", float("inf"))
+        per_src: Dict[str, List[Dict[str, Any]]] = {}
+        for e in events:
+            if e is div or e.get("ts", 0.0) > ts:
+                continue
+            if topic is not None and \
+                    e.get("topic") not in (None, topic):
+                continue
+            src = str(e.get("_src", e.get("proc", "?")))
+            per_src.setdefault(src, []).append(e)
+        ctx = {
+            src: [
+                {k: ev.get(k) for k in
+                 ("ts", "kind", "peer", "replica", "digest", "tid",
+                  "hop", "path", "size") if k in ev}
+                for ev in evs[-context:]
+            ]
+            for src, evs in sorted(per_src.items())
+        }
+        digests = {
+            src: [e.get("digest") for e in evs if e.get("digest")]
+            for src, evs in ctx.items()
+        }
+        common = set.intersection(
+            *(set(d) for d in digests.values())
+        ) if len(digests) > 1 else set()
+        out.append({
+            "divergence": {
+                k: div.get(k) for k in
+                ("ts", "topic", "peer", "replica", "local_digest",
+                 "peer_digest", "doc") if k in div
+            },
+            "src": str(div.get("_src", div.get("proc", "?"))),
+            "context": ctx,
+            "last_common_digests": sorted(common),
+        })
+    return {"divergences": len(divs), "events": out}

@@ -6,7 +6,8 @@
 records: right origins (in-group anchors, dangling ids, rights into
 another list), duplicates, implicit parents. Chain orders, map winners,
 JSON, state vectors and delete sets must be equal, as must the port's
-``resolve_parents``, ``_pad_to``, ``evict_deepest`` and tick timeline.
+``resolve_parents``, ``_pad_to``, ``evict_deepest`` (``guard.limits``) and
+tick timeline.
 """
 
 import random
@@ -23,9 +24,10 @@ from crdt_tpu.obs import timeline as ref_timeline
 from crdt_tpu.ops import merge as ref_merge
 from crdt_tpu.ops import yata as ref_yata
 from crdt_tpu_torch.codec.native import resolve_parents
-from crdt_tpu_torch.core.engine import Engine, evict_deepest
+from crdt_tpu_torch.core.engine import Engine
 from crdt_tpu_torch.core.ids import DeleteSet
 from crdt_tpu_torch.core.records import ItemRecord
+from crdt_tpu_torch.guard.limits import evict_deepest
 from crdt_tpu_torch.obs import timeline
 from crdt_tpu_torch.ops import merge, yata
 
