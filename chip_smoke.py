@@ -93,6 +93,20 @@ JAX or of the reference package. Phases, each fatal on failure:
      injected; three processes on the card (this script with
      ``--udp-child``) are scraped live by a ``FleetCollector`` and meet
      ``bench.py``'s fleet-trace acceptance;
+  13. the fleet control plane (:func:`fleet_control_phase`), also before
+     the timing: ``bench.py --rebalance``'s leg (:func:`rebalance_leg`)
+     with every node's server on the card, gated (no double serve or
+     fork, recovery within budget, ON == OFF byte for byte, a completed
+     migration) and equal field by field to the same leg on the CPU;
+     then three fleet nodes on one card serve phase 10's tenants and
+     the 100,000-op BASELINE #5 tenant (:func:`fleet_phase`): a cold
+     tick equal to phase 10's digests and phase 4's cache, live
+     migrations of "a"'s warm docs and the big tenant under the handoff
+     chaos, every moved doc byte-equal to a migration-free oracle, each
+     destination's next tick one pool dispatch and one
+     ``stream_scatter`` launch, "a" checkpointed, killed and revived;
+     then three processes (this script with ``--fleet-child``) hand a
+     doc over sealed UDP, and exactly one serves it afterwards;
   9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
@@ -112,8 +126,10 @@ shape (``"path": "incremental"``), replica A's load shape
 (``"path": "replica"``), the largest cold multi-tenant batch
 (``"path": "multidoc"``), a steady pooled flush (``"path": "pool"``),
 ``ds_mask`` on the resident engine (``"path": "resident"``) and in the
-device merge's rebuild (``"path": "device_merge"``), and phase 12's
-restart and join over UDP (``"path": "udp"``); the last line is
+device merge's rebuild (``"path": "device_merge"``), phase 12's
+restart and join over UDP (``"path": "udp"``), and phase 13's largest
+cold batch of a fleet node and a destination's first pooled flush after
+it adopts a migrated doc (``"path": "fleet"``); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -306,6 +322,8 @@ def capture_kernel_inputs(seen: dict, *sites):
 def main() -> int:
     if sys.argv[1:2] == ["--udp-child"] and len(sys.argv) == 3:
         return udp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--fleet-child"] and len(sys.argv) == 3:
+        return fleet_child(sys.argv[2])
     if not (ROOT / "crdt_tpu_torch" / "csrc").is_dir():
         return fail(f"crdt_tpu_torch/ not found beside {__file__}")
     sys.path.insert(0, str(ROOT))
@@ -654,7 +672,8 @@ def main() -> int:
     done("8 replica")
 
     # ---- 10. the multi-tenant server (before the timing, which it feeds)
-    mt = multidoc_phase(torch, rp, traces, kernels, packed_mod, hold_kernel)
+    mt, fleet_tenants = multidoc_phase(torch, rp, traces, kernels,
+                                       packed_mod, hold_kernel)
     done("10 multi-tenant server")
 
     # ---- 11. the resident engine and the device merge (before the timing,
@@ -669,6 +688,14 @@ def main() -> int:
     udp = udp_phase(torch, kernels, packed_mod, deleteset, blobs_of,
                     device_results, hold_kernel)
     done("12 sync over UDP")
+
+    # ---- 13. the fleet control plane (before the timing, which it feeds)
+    fl = fleet_control_phase(
+        torch, kernels, packed_mod, traces, hold_kernel, fleet_tenants,
+        blobs_of["trace_1000x100"],
+        json.dumps(device_results["trace_1000x100"].cache, sort_keys=True))
+    del fleet_tenants
+    done("13 fleet control plane")
 
     # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
@@ -735,6 +762,19 @@ def main() -> int:
     for r in udp_rows:
         r["path"] = "udp"
     log("kernel times (udp: A's restart, B's join): " + json.dumps(udp_rows))
+    # ... and phase 13's: a fleet node's largest cold batch, and a
+    # destination's first pooled flush over its adopted docs
+    fleet_rows = []
+    for site, (seen, n) in (("largest cold batch", fl["fleet"]),
+                            ("first flush after adoption",
+                             fl["fleet_flush"])):
+        rows = kernel_rows(torch, kernels, seen, dict.fromkeys(seen, n),
+                           max_err)
+        for r in rows:
+            r["path"] = "fleet"
+            r["site"] = site
+        log(f"kernel times (fleet, {site}): " + json.dumps(rows))
+        fleet_rows += rows
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -747,7 +787,7 @@ def main() -> int:
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
     print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows
-                      + res_rows + udp_rows}), flush=True)
+                      + res_rows + udp_rows + fleet_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1390,8 +1430,12 @@ def multidoc_phase(torch, rp, traces, kernels, packed_mod,
     # the largest cold batch's inputs and one steady flush's, first
     biggest = {k: sorted(v, key=lambda a: -int(a[0].shape[0]))
                for k, v in cold_seen.items()}
+    # phase 13's tenants: these blobs and this server's digests
+    tenants = {"cold": docs, "cold_digests": ref, "names": names,
+               "streams": streams, "ticks": ticks,
+               "tick_digests": tick_digests, "extra": extra}
     return {"multidoc": (biggest, cold_launches),
-            "pool": ({"stream_scatter": pool_seen}, len(pool_seen))}
+            "pool": ({"stream_scatter": pool_seen}, len(pool_seen))}, tenants
 
 
 def swarm_round(mode: str, n_reps: int, n_ops: int, mixed: bool = False,
@@ -3017,6 +3061,1058 @@ def udp_child(arg: str) -> int:
     obs.stop()
     router.close()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the fleet control plane
+# ---------------------------------------------------------------------------
+
+# bench.py's --rebalance leg (bench.py:2207-2553) at its defaults:
+# BENCH_RB_SEED, BENCH_RB_FLOOD_TICKS, BENCH_RB_SUSTAIN_TICKS,
+# BENCH_RB_HYSTERESIS and BENCH_RB_RECOVERY_BUDGET
+RB_SEED, RB_FLOOD_TICKS, RB_SUSTAIN_TICKS = 7, 8, 28
+RB_HYSTERESIS, RB_RECOVERY_BUDGET = 10, 20
+FLEET_MEMBERS = ["a", "b", "c"]
+# the leg's handoff chaos, which every fleet of phase 13 runs under:
+# every migration ack on c->a dropped (the source completes through the
+# fenced probe), every commit on a->c duplicated (the destination
+# re-acks idempotently)
+HANDOFF_WINDOWS = (
+    {"src": "c", "dst": "a", "kinds": ("ack",), "mode": "drop"},
+    {"src": "a", "dst": "c", "kinds": ("commit",), "mode": "dup"},
+)
+
+
+def rebalance_leg(device: str = "cuda", *, seed: int = RB_SEED,
+                  flood_ticks: int = RB_FLOOD_TICKS,
+                  sustain_ticks: int = RB_SUSTAIN_TICKS,
+                  warmup: bool = True) -> dict:
+    """``bench.py --rebalance``'s leg (``rebalance_leg``) on the port,
+    every node's server on ``device``: three fleet nodes on a
+    ``MemFabric`` under :data:`HANDOFF_WINDOWS`, one flooding tenant
+    beside small steady neighbours, identical submissions and static
+    per-tenant budgets twice. OFF: the in-process controllers' squeeze
+    alone. ON: a ``PlacementLoop`` consumes the controllers'
+    ``rebalance_away`` advice, mangled by a seeded
+    ``DuplicateAdviceSchedule``, and live-migrates the flooder; the
+    identity doc "y" is live-migrated a->c mid-stream, then "a" is
+    killed cold and revived from its snapshot store. A per-tick sweep
+    over every doc and process counts double serves, and the identity
+    doc and the steady neighbours must be byte-identical across ON and
+    OFF. Returns bench.py's result dict, key for key."""
+    import os
+    import tempfile
+
+    from crdt_tpu_torch.codec import v1
+    from crdt_tpu_torch.core.ids import DeleteSet
+    from crdt_tpu_torch.core.records import ItemRecord
+    from crdt_tpu_torch.fleet import FleetNode, MemFabric, PlacementLoop
+    from crdt_tpu_torch.models.traces import _SteadyStream
+    from crdt_tpu_torch.net.faults import (DuplicateAdviceSchedule,
+                                           HandoffFaultSchedule)
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+    from crdt_tpu_torch.obs.control import Controller
+    from crdt_tpu_torch.obs.slo import SLOLedger
+    from crdt_tpu_torch.storage.snapshot import SnapshotStore, encode_engine
+
+    settle_ticks = 8
+    budget_bytes, budget_updates = 2048, 4
+    burn_window = 16
+    recover_lo = 0.25
+    members = FLEET_MEMBERS
+    flooder = "doc"        # ring arc: a
+    ident = "y"            # ring arc: a, the migrated identity doc
+    steady = ["w", "tenant-0"]   # ring arcs: b, c, never moved
+    docs = [flooder, ident] + steady
+
+    def flood_blob(i: int) -> bytes:
+        # an independent single-record update: 4 fit the static byte
+        # budget, and the squeezed cap of 1 update a tick sheds one of
+        # every sustain pair
+        return v1.encode_update([ItemRecord(
+            client=10_000 + i, clock=0, parent_root="m",
+            key=f"f{i}", content="f" * 400,
+        )], DeleteSet())
+
+    blob_len = len(flood_blob(0))
+    assert budget_updates * blob_len <= budget_bytes, \
+        "rebalance: a full update-cap tick must fit the byte budget"
+    assert 2 * blob_len > budget_bytes // 4, \
+        "rebalance: a sustain pair must breach the squeezed budget"
+
+    def run(on: bool) -> dict:
+        tracer = set_tracer(Tracer(enabled=True))
+        tmp = tempfile.TemporaryDirectory()
+        chaos = HandoffFaultSchedule(seed, windows=HANDOFF_WINDOWS)
+        fab = MemFabric(faults=chaos)
+        dead: set = set()
+        nodes: dict = {}
+        ctrls: dict = {}
+        stores: dict = {}
+
+        def make_hint(p):
+            # never advise a process that squeezes the tenant or a dead
+            # one
+            def hint(t):
+                excl = [p] + [q for q in members
+                              if q in dead
+                              or str(t) in {str(k) for k in
+                                            ctrls[q].overrides()}]
+                loads = {q: nodes[q].load() for q in members
+                         if q not in dead}
+                return nodes[p].ring.least_loaded_successor(
+                    str(t), exclude=excl, loads=loads)
+            return hint
+
+        def build_node(p):
+            ctrl = Controller(cooldown_ticks=4, restore_after=2)
+            node = FleetNode(
+                p, members, fab, store=stores[p],
+                timeout_ticks=3, beacon_every=4,
+                server_kw=dict(
+                    tenant_max_pending_bytes=budget_bytes,
+                    tenant_max_pending_updates=budget_updates,
+                    slo_ms=1e9,   # sheds drive burn, never clocks
+                    control=ctrl,
+                ), device=device)
+            node.server.slo = SLOLedger(1e9, burn_window=burn_window)
+            ctrl.placement_hint = make_hint(p)
+            nodes[p], ctrls[p] = node, ctrl
+            return node
+
+        for p in members:
+            stores[p] = SnapshotStore(os.path.join(tmp.name, p))
+            build_node(p)
+        ring = nodes["a"].ring
+        adv_chaos = DuplicateAdviceSchedule(seed, duplicate=0.5,
+                                            replay=0.5)
+        loop = PlacementLoop(
+            ring, lambda p: None if p in dead else nodes.get(p),
+            hysteresis=RB_HYSTERESIS, budget_per_tick=1) if on else None
+
+        streams = {d: _SteadyStream(1 + i)
+                   for i, d in enumerate([ident] + steady)}
+        lost = {d: 0 for d in docs}
+
+        def submit(doc, blob):
+            # redirect-chasing client: each live process in order;
+            # exactly one accepts, or (only for the flooder) the update
+            # is lost for the tick
+            for p in members:
+                if p in dead:
+                    continue
+                r, _info = nodes[p].submit(doc, blob)
+                if r in ("ok", "buffered"):
+                    return r
+            lost[doc] += 1
+            return "lost"
+
+        def flood_owner():
+            for p in members:
+                if p not in dead and nodes[p].lease.holds(flooder) \
+                        and not nodes[p].migrator.migrating(flooder):
+                    return p
+            return None
+
+        total = flood_ticks + sustain_ticks
+        t_ident = flood_ticks + 2
+        t_kill = total - 6
+        t_revive = t_kill + 2
+        nblob = 0
+        recovery = None
+        burn_flood_end = None
+        burn_last = None
+        double_serves = 0
+        tail_restores = 0
+        for t in range(total + settle_ticks):
+            if t < total:
+                for _ in range(10 if t < flood_ticks else 2):
+                    submit(flooder, flood_blob(nblob))
+                    nblob += 1
+                for d in [ident] + steady:
+                    assert submit(d, streams[d].delta(4)) != "lost", \
+                        f"rebalance: steady update lost for {d}"
+            if on:
+                if t == t_ident:
+                    assert nodes["a"].migrate(ident, "c"), \
+                        "rebalance: identity migration refused"
+                if t == t_kill - 1:
+                    nodes["a"].checkpoint()
+                if t == t_kill:
+                    fab.kill("a")
+                    dead.add("a")
+                if t == t_revive:
+                    dead.discard("a")
+                    node = build_node("a")
+                    fab.revive("a", node)
+                    before = tracer.counters().get(
+                        "migration.tail_restores", 0)
+                    node.restore()
+                    tail_restores += tracer.counters().get(
+                        "migration.tail_restores", 0) - before
+            for p in members:
+                if p not in dead:
+                    nodes[p].tick()
+            if on:
+                rows = [dict(r, proc=p)
+                        for p in members if p not in dead
+                        for r in ctrls[p].advice()]
+                loop.observe(t, adv_chaos.mangle(t, rows))
+            # the fork guard sweep: more than one server is a fork
+            for d in docs:
+                n_serving = sum(
+                    1 for p in members
+                    if p not in dead and nodes[p].digest(d) is not None)
+                if n_serving > 1:
+                    double_serves += 1
+            owner = flood_owner()
+            burn = None
+            if owner is not None:
+                burn = nodes[owner].server.slo.report()[
+                    "tenants"].get(flooder, {}).get("burn_rate")
+            if burn is not None:
+                burn_last = burn
+            if t == flood_ticks - 1:
+                burn_flood_end = burn
+            if (recovery is None and t >= flood_ticks
+                    and burn is not None and burn <= recover_lo):
+                recovery = t - flood_ticks + 1
+        # re-warm the identity doc so both legs compare a resident engine
+        assert submit(ident, streams[ident].delta(2)) == "ok"
+        for p in members:
+            if p not in dead:
+                nodes[p].tick()
+        serving_ident = [p for p in members if p not in dead
+                         and nodes[p].digest(ident) is not None]
+        assert len(serving_ident) == 1, \
+            f"rebalance: identity doc served by {serving_ident}"
+        out = {
+            "nodes": nodes, "loop": loop, "fab": fab,
+            "adv_chaos": adv_chaos, "counters": dict(tracer.counters()),
+            "recovery": recovery, "burn_flood_end": burn_flood_end,
+            "burn_last": burn_last, "double_serves": double_serves,
+            "lost": lost, "tail_restores": tail_restores,
+            "ident_proc": serving_ident[0], "tmp": tmp,
+        }
+        set_tracer(Tracer(enabled=False))
+        return out
+
+    if warmup:
+        run(True)["tmp"].cleanup()
+    on = run(True)
+    off = run(False)
+
+    def ident_state(leg):
+        srv = leg["nodes"][leg["ident_proc"]].server
+        eng = srv._docs[ident].resident
+        assert eng is not None, "rebalance: identity doc went cold"
+        return {"digest": srv.digest(ident), "sv": eng.state_vector().clocks,
+                "update": eng.encode_state_as_update(),
+                "snapshot": encode_engine(eng, seq=0)}
+
+    s_on, s_off = ident_state(on), ident_state(off)
+    identical = {
+        "ident_digest": s_on["digest"] == s_off["digest"],
+        "ident_sv": s_on["sv"] == s_off["sv"],
+        "ident_update": s_on["update"] == s_off["update"],
+        "ident_snapshot": s_on["snapshot"] == s_off["snapshot"],
+    }
+    for d in steady:
+        a = [on["nodes"][p].digest(d) for p in members
+             if on["nodes"][p].digest(d) is not None]
+        b = [off["nodes"][p].digest(d) for p in members
+             if off["nodes"][p].digest(d) is not None]
+        identical[f"steady_{d}"] = bool(a) and a == b
+    on["tmp"].cleanup()
+    off["tmp"].cleanup()
+    c_on = on["counters"]
+
+    def csum(name: str) -> int:
+        return sum(v for k, v in c_on.items()
+                   if k == name or k.startswith(name + "{"))
+
+    hops = [r for r in on["loop"].ledger.rows()
+            if r.get("action") == "migrate"]
+    return {
+        "seed": seed,
+        "flood_ticks": flood_ticks,
+        "sustain_ticks": sustain_ticks,
+        "recovery_ticks": on["recovery"],
+        "recovery_ticks_off": off["recovery"],
+        "recovery_budget_ticks": RB_RECOVERY_BUDGET,
+        "burn_flood_end": on["burn_flood_end"],
+        "burn_end_off": off["burn_last"],
+        "migrations": on["loop"].migrations,
+        "hops": [{"src": r["src"], "dst": r["dst"], "tick": r["tick"]}
+                 for r in hops],
+        "migrations_completed": csum("migration.completed"),
+        "migration_recoveries": csum("migration.recovery"),
+        "recoveries_by_step": {
+            k.split('step="', 1)[1].rstrip('"}'): v
+            for k, v in c_on.items() if k.startswith('migration.recovery{')},
+        "fence_rejects": csum("fleet.fence_rejects"),
+        "fork_refused": csum("fleet.fork_refused"),
+        "forks": on["double_serves"] + off["double_serves"],
+        "double_serves": on["double_serves"],
+        "tail_blobs": csum("migration.tail_blobs"),
+        "tail_restores": on["tail_restores"],
+        "advice_dups": on["loop"].dup_drops,
+        "advice_injected": on["adv_chaos"].injected,
+        "ledger_rows": on["loop"].ledger.total,
+        "frames_sent": on["fab"].sent,
+        "frames_dropped": on["fab"].dropped,
+        "frames_duplicated": on["fab"].duplicated,
+        "lost_flood_updates": on["lost"][flooder],
+        "identical": identical,
+        "all_identical": all(identical.values()),
+    }
+
+
+# phase 13 (b): the BASELINE #5 tenant beside phase 10's, its name (ring
+# arc b), and the ticks that follow the handoffs' completion
+FLEET_BIG = "baseline5"
+FLEET_TICKS_AFTER = 2
+# the longest a handoff may take under HANDOFF_WINDOWS, in fleet ticks
+FLEET_HANDOFF_TICKS = 16
+
+
+def big_delta(traces, t: int) -> bytes:
+    """The BASELINE #5 tenant's delta of fleet tick ``t``: ``WARM_DELTA``
+    ops of a fresh writer (map sets and own-chain list appends over the
+    trace's roots, clients clear of its 1..1000)."""
+    return traces.build_trace(1, WARM_DELTA, seed=1000 + t,
+                              client_base=5000 + t)[0]
+
+
+def fleet_phase(torch, kernels, packed_mod, traces, hold_kernel,
+                tenants: dict, big_blobs, big_cache: str,
+                device: str = "cuda") -> dict:
+    """Phase 13 (b): the fleet at real size, every node's server on
+    ``device``.
+
+    Three fleet nodes ("a", "b", "c", ``vnodes=64``) share one
+    ``MemFabric`` under :data:`HANDOFF_WINDOWS`, each with a pooled
+    server and its own ``SnapshotStore``; a redirect-chasing client (an
+    update no process takes waits for the next tick, in order) feeds
+    phase 10's tenants (``tenants``: the cold tenants, the 32 warm docs
+    and their blobs, and the digests phase 10's single server gave) and
+    the BASELINE #5 tenant :data:`FLEET_BIG` (``big_blobs``, 100,000
+    ops). After every fleet tick a sweep asks every live node to serve
+    every doc and counts double serves.
+
+    1. One cold tick: each node's packed batches launch
+       ``seg_argmax_scan`` and ``stream_scatter`` once a batch; every
+       tenant's digest equals phase 10's, and the big tenant's cache
+       ``big_cache`` (phase 4's device route).
+    2. A promotion tick and steady ticks of 64-op deltas (digests equal
+       phase 10's); then every warm doc "a" owns, and the big tenant, is
+       live-migrated to its ring's least-loaded successor while deltas
+       keep landing, so the tails ride the commit frames.
+    3. After the handoffs exactly one node serves each doc, and each
+       moved doc's digest, state vector, full-state update and engine
+       snapshot equal a migration-free oracle's: one pooled server on
+       ``device`` that takes each moved doc's blobs in the ticks the
+       fleet's holder of the doc took them (a handoff's tail lands on
+       the destination in one tick) and reads the doc's cache after
+       every tick in which the fleet read it (a serve, the source's
+       ship). The order of a lazily rebuilt cache's map keys, and so the
+       engine snapshot's bytes, follows the reads (ROADMAP C).
+    4. Each destination's next steady tick is one pool dispatch and one
+       ``stream_scatter`` launch, over its adopted docs too.
+    5. "a" is checkpointed, killed and revived with ``restore()``; its
+       cold tenants come back from the client's blob log; one node
+       serves each doc and every digest is unchanged.
+
+    Returns the kernel inputs and launches of the ``"fleet"`` rows and
+    the phase's record."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    from crdt_tpu_torch.fleet import FleetNode, MemFabric, migration, wire
+    from crdt_tpu_torch.models.incremental import IncrementalReplay
+    from crdt_tpu_torch.models.multidoc import MultiDocServer
+    from crdt_tpu_torch.net.faults import HandoffFaultSchedule
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+    from crdt_tpu_torch.storage import snapshot
+
+    label = f"fleet [{device}]"
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cold, warm_ticks = tenants["cold"], tenants["ticks"]
+    names, streams = tenants["names"], tenants["streams"]
+    members = FLEET_MEMBERS
+    server_kw = {"max_rows_per_dispatch": COLD_MAX_ROWS, "pool": True}
+    tracer = set_tracer(Tracer(enabled=True))
+    tmp = tempfile.TemporaryDirectory()
+    chaos = HandoffFaultSchedule(RB_SEED, windows=HANDOFF_WINDOWS)
+    fab = MemFabric(faults=chaos)
+    stores = {p: snapshot.SnapshotStore(os.path.join(tmp.name, p))
+              for p in members}
+    nodes: dict = {}
+    oracle = MultiDocServer(device=device, **server_kw)
+    all_docs = list(cold) + names + [FLEET_BIG]
+    moved: list = []
+    applied: list = []   # (doc, blob) of moved docs a fleet server took
+    read: set = set()    # moved docs the fleet read outside the sweep
+
+    def build(p):
+        node = FleetNode(p, members, fab, store=stores[p],
+                         timeout_ticks=3, beacon_every=4,
+                         server_kw=dict(server_kw), device=device)
+        take = node.server.submit
+
+        def submit(doc, blob):
+            if doc in moved:
+                applied.append((doc, bytes(blob)))
+            return take(doc, blob)
+
+        node.server.submit = submit
+        return node
+
+    for p in members:
+        nodes[p] = build(p)
+    ring = nodes["a"].ring
+    moved += [d for d in names if ring.owner(d) == "a"] + [FLEET_BIG]
+    backlog: dict = {}
+    hint: dict = {}
+    routes: Counter = Counter()
+
+    def submit(doc, blob):
+        backlog.setdefault(doc, []).append(blob)
+
+    def flush_client():
+        # each doc's backlog in order, to its believed owner first,
+        # chasing redirects
+        for doc in list(backlog):
+            q = backlog[doc]
+            while q:
+                r = "retry"
+                for p in dict.fromkeys([hint.get(doc, "a")] + members):
+                    if p in fab.dead:
+                        continue
+                    r, info = nodes[p].submit(doc, q[0])
+                    if r in ("ok", "buffered"):
+                        hint[doc] = p
+                        break
+                    if r == "redirect" and info in nodes:
+                        hint[doc] = info
+                routes[r] += 1
+                if r not in ("ok", "buffered"):
+                    break
+                q.pop(0)
+            if not q:
+                del backlog[doc]
+
+    def warm_feed():
+        # each warm doc's blobs after its cold tick, in phase 10's order:
+        # its ticks, its checkpoint step's two blobs, then fresh deltas
+        for t in range(1, len(warm_ticks)):
+            yield {d: [warm_ticks[t][d]] for d in names}
+        yield {d: list(tenants["extra"][d]) for d in names}
+        while True:
+            yield {d: [s.delta(WARM_DELTA)] for d, s in zip(names, streams)}
+
+    feed = warm_feed()
+
+    def submit_warm(t):
+        for d, blobs in next(feed).items():
+            for b in blobs:
+                submit(d, b)
+        submit(FLEET_BIG, big_delta(traces, t))
+
+    def node_tick(p, seen=None):
+        sync()
+        kernels.reset_launches()
+        d0 = packed_mod.device_dispatch_count
+        t0 = time.perf_counter()
+        if seen is None:
+            rep = nodes[p].tick()
+        else:
+            with capture_kernel_inputs(
+                    seen, (packed_mod, "seg_argmax_scan"),
+                    (packed_mod, "stream_scatter")):
+                rep = nodes[p].tick()
+        sync()
+        wall = time.perf_counter() - t0
+        if rep.fallback_docs:
+            raise AssertionError(f"{label}: {p} fell back: {rep}")
+        return rep, wall, kernels.launch_counts(), \
+            packed_mod.device_dispatch_count - d0
+
+    double_serves = [0]
+    # host seconds of the fleet ticks, part by part
+    parts = Counter()
+
+    def fleet_tick(exact: bool, seen_of=None):
+        """Client, node ticks, the serving sweep, then the oracle's
+        tick. Returns each node's (report, wall s, launches, device
+        dispatches) and each doc's digest where one node serves it."""
+        t0 = time.perf_counter()
+        flush_client()
+        t1 = time.perf_counter()
+        out = {}
+        for p in members:
+            if p not in fab.dead:
+                out[p] = node_tick(p, None if seen_of is None
+                                   else seen_of.setdefault(p, {}))
+        t2 = time.perf_counter()
+        served = {}
+        for d in all_docs:
+            got = [(p, g) for p in members if p not in fab.dead
+                   for g in [nodes[p].digest(d)] if g is not None]
+            if len(got) > 1:
+                double_serves[0] += 1
+            if exact and len(got) != 1:
+                raise AssertionError(f"{label}: {d} served by "
+                                     f"{[p for p, _ in got]}")
+            if len(got) == 1:
+                served[d] = got[0][1]
+        t3 = time.perf_counter()
+        for d, b in applied:
+            oracle.submit(d, b)
+        applied.clear()
+        oracle.tick()
+        for d in moved:
+            if d in served or d in read:
+                oracle.digest(d)
+        read.clear()
+        sync()
+        parts.update({"ticks": 1, "client_s": t1 - t0, "nodes_s": t2 - t1,
+                      "sweep_s": t3 - t2,
+                      "oracle_s": time.perf_counter() - t3})
+        return out, served
+
+    prev_min = os.environ.get("CRDT_TPU_DEVICE_MIN")
+    os.environ["CRDT_TPU_DEVICE_MIN"] = "1"  # as phase 10
+    t_phase = time.perf_counter()
+    try:
+        # ---- 1. one cold tick
+        for d, blobs in cold.items():
+            for b in blobs:
+                submit(d, b)
+        for d in names:
+            submit(d, warm_ticks[0][d])
+        for b in big_blobs:
+            submit(FLEET_BIG, b)
+        cold_seen: dict = {}
+        res, served = fleet_tick(True, cold_seen)
+        cold_launches = 0
+        for p, (rep, wall, counts, _) in res.items():
+            log(f"{label} cold tick [{p}]: {wall:.3f} s; {rep}; launches "
+                f"{counts}")
+            if device == "cuda" and not (
+                    counts["seg_argmax_scan"] == counts["stream_scatter"]
+                    == rep.dispatches > 0):
+                raise AssertionError(f"{label}: {p}'s cold tick launched "
+                                     f"{counts} for {rep.dispatches} "
+                                     "dispatches")
+            cold_launches += counts["seg_argmax_scan"]
+            for kname, calls in cold_seen[p].items():
+                for args in calls:
+                    hold_kernel(kname, *args)
+        want = dict(tenants["cold_digests"], **tenants["tick_digests"][0])
+        if any(served[d] != want[d] for d in want):
+            raise AssertionError(f"{label}: a digest after the cold tick "
+                                 "differs from phase 10's")
+        if json.dumps(nodes[ring.owner(FLEET_BIG)].server.cache(FLEET_BIG),
+                      sort_keys=True) != big_cache:
+            raise AssertionError(f"{label}: {FLEET_BIG} != the device route")
+        log(f"{label}: cold tick: every tenant == phase 10's digests, "
+            f"{FLEET_BIG} ({len(big_blobs)} blobs) == phase 4's device "
+            f"route; docs a node "
+            f"{dict(sorted(Counter(ring.owner(d) for d in all_docs).items()))}")
+
+        # ---- 2. promotion and steady ticks, then the migrations
+        steady_before = {p: [] for p in members}
+        for t in range(1, 5):
+            submit_warm(t)
+            res, served = fleet_tick(True)
+            if t >= 3:
+                for p, r in res.items():
+                    steady_before[p].append(round(r[1], 6))
+            if {d: served[d] for d in names} != tenants["tick_digests"][t]:
+                raise AssertionError(f"{label}: tick {t} != phase 10's")
+        for d in moved:
+            if nodes[ring.owner(d)].server._docs[d].resident is None:
+                raise AssertionError(f"{label}: {d} is not resident")
+        # what a migration costs on the host, doc by doc
+        costs: dict = {d: {} for d in moved}
+        current = [None]
+
+        def timed_into(key, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync()
+                if current[0] is not None:
+                    costs[current[0]][key] = round(
+                        time.perf_counter() - t0, 6)
+                return out
+            return call
+
+        def scoped(fn, doc_of):
+            def call(*a, **kw):
+                current[0] = doc_of(*a, **kw)
+                read.add(current[0])
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    current[0] = None
+            return call
+
+        patches = [
+            (snapshot, "encode_engine", timed_into(
+                "encode_engine_s", snapshot.encode_engine)),
+            (snapshot, "rehydrate", timed_into(
+                "rehydrate_s", snapshot.rehydrate)),
+            (IncrementalReplay, "encode_state_as_update", timed_into(
+                "encode_state_as_update_s",
+                IncrementalReplay.encode_state_as_update)),
+            (migration.Migrator, "_ship", scoped(
+                migration.Migrator._ship, lambda self, m: m.doc)),
+        ]
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        adopt = migration.adopt_doc
+        send = fab.send
+
+        def adopting(server, doc, *a):
+            # the destination's adoption, timed alone (it is no read)
+            current[0] = doc
+            try:
+                return adopt(server, doc, *a)
+            finally:
+                current[0] = None
+
+        def sending(src, dst, data):
+            dec = wire.decode_frame(data)
+            if dec and dec[0].get("kind") == "offer":
+                costs[dec[0]["doc"]]["offer_bytes"] = len(data)
+            return send(src, dst, data)
+
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        migration.adopt_doc = adopting
+        fab.send = sending
+        try:
+            loads = {p: nodes[p].load() for p in members}
+            plan = {}
+            for d in moved:
+                src = ring.owner(d)
+                dst = ring.least_loaded_successor(d, exclude=[src],
+                                                  loads=loads)
+                if not nodes[src].migrate(d, dst):
+                    raise AssertionError(f"{label}: migrate({d}) refused")
+                plan[d] = (src, dst, time.perf_counter())
+            log(f"{label}: loads before the moves {json.dumps(loads)}; "
+                f"moves {json.dumps({d: v[:2] for d, v in plan.items()})}")
+            pending = dict(plan)
+            t = 5
+            while pending:
+                if t > 5 + FLEET_HANDOFF_TICKS:
+                    raise AssertionError(f"{label}: handoffs of "
+                                         f"{sorted(pending)} incomplete")
+                submit_warm(t)
+                fleet_tick(False)
+                now = time.perf_counter()
+                for d, (src, dst, t0) in list(pending.items()):
+                    if d not in nodes[src].migrator.outbound:
+                        costs[d]["ticks"] = t - 4
+                        costs[d]["seconds"] = round(now - t0, 6)
+                        del pending[d]
+                t += 1
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+            migration.adopt_doc = adopt
+            fab.send = send
+        if backlog:
+            raise AssertionError(f"{label}: updates still waiting "
+                                 f"{ {d: len(v) for d, v in backlog.items()} }")
+        for d, (src, dst, _) in plan.items():
+            if nodes[dst].lease.lease(d) != (2, dst) or \
+                    d in nodes[src].server._docs:
+                raise AssertionError(f"{label}: {d} did not move to {dst}")
+
+        # ---- 3 and 4. the destinations' next steady ticks
+        dsts = sorted({v[1] for v in plan.values()})
+        steady_after = {p: [] for p in members}
+        flush_seen: dict = {}
+        flush_launches = 0
+        for k in range(FLEET_TICKS_AFTER):
+            submit_warm(t + k)
+            res, _ = fleet_tick(True, flush_seen if k == 0 else None)
+            for p, (rep, wall, counts, disp) in res.items():
+                steady_after[p].append(round(wall, 6))
+                if k or p not in dsts:
+                    continue
+                adopted = [d for d, v in plan.items() if v[1] == p]
+                srv = nodes[p].server
+                log(f"{label}: {p}'s first tick over adopted {adopted}: "
+                    f"{wall:.4f} s; {rep}; device dispatches {disp}; "
+                    f"launches {counts}")
+                want = dict.fromkeys(counts, 0)
+                want["stream_scatter"] = int(device == "cuda")
+                if rep.pool_dispatches != 1 or disp != 1 or counts != want \
+                        or any(srv._docs[d].resident is None
+                               or srv._docs[d].resident.pool is not srv.pool
+                               for d in adopted):
+                    raise AssertionError(f"{label}: {p}'s first tick after "
+                                         f"adoption: {rep}, {counts}")
+                flush_launches += counts["stream_scatter"]
+                for args in flush_seen[p].get("stream_scatter", ()):
+                    hold_kernel("stream_scatter", *args)
+        for d, (_src, dst, _) in plan.items():
+            got = nodes[dst].server
+            a, b = got._docs[d].resident, oracle._docs[d].resident
+            for what, x, y in (
+                    ("digest", got.digest(d), oracle.digest(d)),
+                    ("state vector", a.state_vector().clocks,
+                     b.state_vector().clocks),
+                    ("full-state update", a.encode_state_as_update(),
+                     b.encode_state_as_update()),
+                    ("engine snapshot", snapshot.encode_engine(a, seq=0),
+                     snapshot.encode_engine(b, seq=0))):
+                if x != y:
+                    raise AssertionError(f"{label}: {d}'s {what} != the "
+                                         "oracle's")
+        log(f"{label}: after the handoffs one node serves each of "
+            f"{len(all_docs)} docs; the {len(plan)} moved docs == the "
+            "migration-free oracle (digest, state vector, full-state "
+            "update, engine snapshot)")
+
+        # ---- 5. checkpoint, kill and revive "a"
+        _, before = fleet_tick(True)
+        sync()
+        t0 = time.perf_counter()
+        n_ckpt = nodes["a"].checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        fab.kill("a")
+        for _ in range(2):
+            fleet_tick(False)
+        nodes["a"] = build("a")
+        fab.revive("a", nodes["a"])
+        t0 = time.perf_counter()
+        n_rest = nodes["a"].restore()
+        sync()
+        restore_s = time.perf_counter() - t0
+        relog = [d for d in cold if nodes["a"].lease.holds(d)
+                 and d not in nodes["a"].server._docs]
+        for d in relog:
+            for b in cold[d]:
+                submit(d, b)
+        _, after = fleet_tick(True)
+        if after != before or n_rest != n_ckpt:
+            raise AssertionError(
+                f"{label}: revived 'a' changed "
+                f"{[d for d in before if after.get(d) != before[d]]} "
+                f"({n_ckpt} checkpointed, {n_rest} restored)")
+        log(f"{label}: 'a' checkpointed {n_ckpt} resident docs in "
+            f"{ckpt_s:.3f} s, killed, revived with restore() of {n_rest} "
+            f"in {restore_s:.3f} s, {len(relog)} cold tenants re-admitted "
+            "from the client's blob log; one node serves each doc, every "
+            "digest unchanged")
+    finally:
+        if prev_min is None:
+            os.environ.pop("CRDT_TPU_DEVICE_MIN", None)
+        else:
+            os.environ["CRDT_TPU_DEVICE_MIN"] = prev_min
+        set_tracer(Tracer(enabled=False))
+        tmp.cleanup()
+    counters = tracer.counters()
+    if double_serves[0] or any(nodes[p].lease.fork_refused for p in members):
+        raise AssertionError(f"{label}: {double_serves[0]} double serves")
+    if not counters.get("migration.tail_blobs"):
+        raise AssertionError(f"{label}: no update rode a commit frame")
+    record = {
+        "migrations": costs,
+        "recoveries": {k: v for k, v in counters.items()
+                       if k.startswith("migration.recovery")},
+        "tail_blobs": counters.get("migration.tail_blobs", 0),
+        "completed": counters.get("migration.completed", 0),
+        "steady_tick_s_before": steady_before,
+        "steady_tick_s_after": steady_after,
+        "fabric": {"sent": fab.sent, "dropped": fab.dropped,
+                   "duplicated": fab.duplicated},
+        "client_routes": dict(routes),
+        "fleet_tick_parts": {k: round(v, 6) for k, v in parts.items()},
+        "double_serves": double_serves[0],
+        "seconds": round(time.perf_counter() - t_phase, 3),
+    }
+    log(f"{label}: record {json.dumps(record, sort_keys=True)}")
+    biggest: dict = {}
+    for p in members:
+        for kname, calls in cold_seen.get(p, {}).items():
+            biggest.setdefault(kname, []).extend(calls)
+    biggest = {k: sorted(v, key=lambda a: -int(a[0].shape[0]))
+               for k, v in biggest.items()}
+    flush = [a for p in dsts
+             for a in flush_seen.get(p, {}).get("stream_scatter", ())]
+    return {"rows": {"fleet": (biggest, cold_launches),
+                     "fleet_flush": ({"stream_scatter": flush},
+                                     flush_launches)},
+            "record": record}
+
+
+# phase 13 (c): bench.py's --rebalance --smoke children (its
+# BENCH_RB_SMOKE_TICKS default), their tick sleep and the grace ticks
+# after the handoff
+FLEET_CHILD_TICKS = 30
+
+
+def fleet_subprocess(device: str = "cuda") -> dict:
+    """Phase 13 (c): ``bench.py --rebalance --smoke`` on the port
+    (``rebalance_smoke``, bench.py:2701-2787): three OS processes (this
+    script again, ``--fleet-child``), each a ``FleetNode`` with its
+    server on ``device`` over a ``UdpFabric`` on the port's sealed
+    ``UdpEndpoint``, X25519 identities from fixed seeds. Child "a"
+    seeds the doc and live-migrates it to "c". Exactly one child serves
+    afterwards, with "a"'s pre-migration digest; the losers' fence
+    counts it; no child's transport failed a message."""
+    import os
+    import subprocess
+    import tempfile
+
+    label = f"fleet over UDP [{device}]"
+    names = FLEET_MEMBERS
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:
+        ports = _free_ports(len(names), udp=True)
+        procs, logs = [], []
+        try:
+            for idx in range(len(names)):
+                cfg = {"idx": idx, "names": names, "ports": ports,
+                       "outdir": outdir, "ticks": FLEET_CHILD_TICKS,
+                       "device": device}
+                out = open(os.path.join(outdir, f"child_{idx}.log"), "w")
+                logs.append(out)
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--fleet-child", json.dumps(cfg)],
+                    cwd=ROOT, stdout=out, stderr=subprocess.STDOUT))
+            done_paths = [os.path.join(outdir, f"done_{i}.json")
+                          for i in range(len(names))]
+            deadline = time.monotonic() + 150.0
+            while time.monotonic() < deadline and not all(
+                    os.path.exists(p) for p in done_paths):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.05)
+            missing = [p for p in done_paths if not os.path.exists(p)]
+            if missing:
+                for out in logs:
+                    out.flush()
+                tails = [Path(out.name).read_text()[-1500:] for out in logs]
+                raise AssertionError(f"{label}: children incomplete "
+                                     f"{missing}, rc "
+                                     f"{[p.poll() for p in procs]}, logs "
+                                     f"{tails}")
+            dones = {names[i]: json.loads(Path(p).read_text())
+                     for i, p in enumerate(done_paths)}
+        finally:
+            with open(os.path.join(outdir, "stop"), "w") as f:
+                f.write("done")
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            for out in logs:
+                out.close()
+        rcs = [p.returncode for p in procs]
+        child_logs = [Path(out.name).read_text()[-600:] for out in logs]
+    servers = [n for n in names if dones[n]["digest"] is not None]
+    leases = {n: dones[n]["lease"] for n in names}
+    checks = {
+        "children exited 0": rcs == [0] * len(names),
+        "a migrated": dones["a"]["migrate_ok"] is True
+        and dones["a"]["completed"] == 1,
+        "one server, c": servers == ["c"],
+        "c serves d0": dones["c"]["digest"] == dones["a"]["d0"],
+        "leases at (2, c)": all(v == [2, "c"] for v in leases.values()),
+        "a's fence counted": dones["a"]["fence_rejects"] >= 1,
+        "no fork": sum(d["fork_refused"] for d in dones.values()) == 0,
+        "udp_failed 0": all(d["udp_failed"] == 0 for d in dones.values()),
+        "on the device": all(d["device"] == device for d in dones.values())
+        and (dones["a"]["launches"]["stream_scatter"] > 0)
+        == (device == "cuda"),
+    }
+    out = {"servers": servers, "leases": leases,
+           "fence_rejects": {n: dones[n]["fence_rejects"] for n in names},
+           "udp_failed": {n: dones[n]["udp_failed"] for n in names},
+           "handoff_tick": dones["a"]["handoff_tick"],
+           "launches": {n: dones[n]["launches"] for n in names},
+           "seconds": round(time.perf_counter() - t_start, 3)}
+    log(f"{label}: {json.dumps(out, sort_keys=True)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{label}: failed {failed}: {child_logs}")
+    return out
+
+
+def fleet_child(arg: str) -> int:
+    """One child of :func:`fleet_subprocess` (bench.py's
+    ``rebalance_child``, bench.py:2556-2698, on the port): a
+    ``FleetNode`` whose server is on ``cfg["device"]`` and whose fabric
+    is the sealed ``UdpEndpoint``. The run ends on a barrier: once "a"
+    marks the handoff complete, every child runs a grace window (a
+    beacon cadence, so "b" adopts the new owner), writes
+    ``done_<idx>.json`` and drains its inbox until the parent's stop
+    file appears."""
+    import os
+
+    cfg = json.loads(arg)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    idx = int(cfg["idx"])
+    if cfg["device"] == "cuda" and not torch.cuda.is_available():
+        print(json.dumps({"child": idx, "error": "no card"}),
+              file=sys.stderr)
+        return 2
+    names = list(cfg["names"])
+    me = names[idx]
+    ports = cfg["ports"]
+    outdir = cfg["outdir"]
+    ticks = int(cfg["ticks"])
+
+    from crdt_tpu_torch.codec import v1
+    from crdt_tpu_torch.core.ids import DeleteSet
+    from crdt_tpu_torch.core.records import ItemRecord
+    from crdt_tpu_torch.fleet import FleetNode, UdpFabric
+    from crdt_tpu_torch.net.transport import SecureBox, UdpEndpoint, keypair
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+    from crdt_tpu_torch.ops import kernels
+    from crdt_tpu_torch.storage.snapshot import SnapshotStore
+
+    tracer = set_tracer(Tracer(enabled=True))
+    keys = {n: keypair(bytes([j + 1]) * 32) for j, n in enumerate(names)}
+    _pub, sec = keys[me]
+    peers = {n: ("127.0.0.1", int(ports[j]), SecureBox(sec, keys[n][0]))
+             for j, n in enumerate(names) if n != me}
+    ep = UdpEndpoint("127.0.0.1", int(ports[idx]))
+    node = FleetNode(me, names, UdpFabric(me, ep, peers),
+                     store=SnapshotStore(os.path.join(outdir, me)),
+                     timeout_ticks=25, beacon_every=8,
+                     server_kw={"slo_ms": 1e9}, device=cfg["device"])
+
+    # start barrier: frames to an unbound port are lost
+    with open(os.path.join(outdir, f"ready_{idx}.json"), "w") as f:
+        json.dump({"port": ep.port}, f)
+    deadline = time.monotonic() + 60.0
+    while time.monotonic() < deadline and not all(
+            os.path.exists(os.path.join(outdir, f"ready_{j}.json"))
+            for j in range(len(names))):
+        time.sleep(0.01)
+
+    def chain_blob(k0, n_ops=4):
+        return v1.encode_update([ItemRecord(
+            client=7, clock=k, parent_root="l",
+            origin=(7, k - 1) if k else None, content=7000 + k,
+        ) for k in range(k0, k0 + n_ops)], DeleteSet())
+
+    doc = "doc"           # ring arc: a
+    d0 = None
+    migrate_ok = None
+    handoff_path = os.path.join(outdir, "handoff.json")
+    t = 0
+    grace = None
+    while True:
+        if me == "a":
+            if t < 4:
+                r, _ = node.submit(doc, chain_blob(4 * t))
+                assert r == "ok", f"seed submit: {r}"
+            if t == 4:
+                d0 = node.server.digest(doc)
+            if t == 10:
+                migrate_ok = node.migrate(doc, "c")
+            if migrate_ok and node.migrator.completed >= 1 \
+                    and not os.path.exists(handoff_path):
+                with open(handoff_path + ".tmp", "w") as f:
+                    json.dump({"tick": t}, f)
+                os.replace(handoff_path + ".tmp", handoff_path)
+        ep.poll()
+        node.tick()
+        time.sleep(0.02)
+        t += 1
+        if grace is None:
+            if t >= ticks and os.path.exists(handoff_path):
+                grace = 24
+            elif t > 40 * ticks:   # runaway guard: fail loudly
+                break
+        else:
+            grace -= 1
+            if grace <= 0:
+                break
+    if cfg["device"] == "cuda":
+        torch.cuda.synchronize()
+    served = node.digest(doc)   # fence-refused (and counted) on losers
+    counters = tracer.counters()
+
+    def csum(name):
+        return sum(v for k, v in counters.items()
+                   if k == name or k.startswith(name + "{"))
+
+    handoff = json.loads(Path(handoff_path).read_text()) \
+        if os.path.exists(handoff_path) else {}
+    done = {
+        "proc": me, "digest": served, "d0": d0,
+        "lease": list(node.lease.lease(doc)), "migrate_ok": migrate_ok,
+        "completed": node.migrator.completed,
+        "fence_rejects": csum("fleet.fence_rejects"),
+        "fork_refused": csum("fleet.fork_refused"),
+        "udp_failed": ep.failed, "handoff_tick": handoff.get("tick"),
+        "device": node.server.device.type,
+        "launches": kernels.launch_counts(),
+    }
+    done_path = os.path.join(outdir, f"done_{idx}.json")
+    with open(done_path + ".tmp", "w") as f:
+        json.dump(done, f)
+    os.replace(done_path + ".tmp", done_path)
+    deadline = time.monotonic() + 60.0
+    while time.monotonic() < deadline and not os.path.exists(
+            os.path.join(outdir, "stop")):
+        ep.poll()
+        node.drain_inbox()
+        time.sleep(0.01)
+    ep.close()
+    return 0
+
+
+def fleet_control_phase(torch, kernels, packed_mod, traces, hold_kernel,
+                        tenants: dict, big_blobs, big_cache: str) -> dict:
+    """Phase 13, the fleet control plane on the card: (a)
+    :func:`rebalance_leg` with every server on the card, gated and held
+    field by field against the same leg on the CPU; (b)
+    :func:`fleet_phase`; (c) :func:`fleet_subprocess`. Returns the
+    ``"fleet"`` rows' kernel inputs and launches."""
+    t0 = time.perf_counter()
+    leg = rebalance_leg("cuda")
+    leg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = rebalance_leg("cpu", warmup=False)
+    cpu_s = time.perf_counter() - t0
+    log(f"fleet rebalance leg [cuda]: {json.dumps(leg, sort_keys=True)}")
+    log(f"fleet rebalance leg: {leg_s:.3f} s on the card (a warm-up leg, "
+        f"ON and OFF), {cpu_s:.3f} s on the CPU (ON and OFF)")
+    checks = {
+        "double_serves == 0": leg["double_serves"] == 0,
+        "forks == 0": leg["forks"] == 0,
+        "recovery within budget": leg["recovery_ticks"] is not None
+        and leg["recovery_ticks"] <= leg["recovery_budget_ticks"],
+        "all_identical": leg["all_identical"],
+        "migrations_completed >= 1": leg["migrations_completed"] >= 1,
+        "card == CPU": leg == cpu,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        diff = {k: (leg[k], cpu[k]) for k in leg if leg[k] != cpu.get(k)}
+        raise AssertionError(f"fleet rebalance leg: failed {failed}; card "
+                             f"vs CPU {diff}")
+    out = fleet_phase(torch, kernels, packed_mod, traces, hold_kernel,
+                      tenants, big_blobs, big_cache)
+    fleet_subprocess("cuda")
+    return out["rows"]
 
 
 def sync_warnings(torch, run) -> dict:
