@@ -107,6 +107,21 @@ JAX or of the reference package. Phases, each fatal on failure:
      ``stream_scatter`` launch, "a" checkpointed, killed and revived;
      then three processes (this script with ``--fleet-child``) hand a
      doc over sealed UDP, and exactly one serves it afterwards;
+  14. multi-device on a mesh whose entries all lie on the card
+     (:func:`multidevice_phase`), also before the timing: the 1000 x
+     1600 union sharded 2, 4 and 8 ways (``ops.shard``: per-shard
+     staging, one launch sequence a mesh entry, the boundary exchange
+     of the shards' state vectors), each equal to phase 4 byte for byte
+     with ``seg_argmax_scan`` and ``stream_scatter`` launched once a
+     shard, and ``replay_trace`` with ``CRDT_TPU_SHARDS=4``; the stream
+     route with every stream shard sharded two ways, equal to phase 6;
+     ``fleet_replay`` sharded and segment-sharded on a 4-entry mesh and
+     the two-tier round on a 2 x 2 mesh, equal to phase 5;
+     ``MultiDocServer(shards=4)`` on phase 10's cold tenants, every
+     digest equal and every batch past ``CRDT_TPU_SHARD_MIN_ROWS``
+     sharded; the ring delta on 8 entries equal to the CPU; a
+     ``GossipFaultPlan``'s drop and partition rounds, healed to the
+     fault-free round;
   9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
@@ -129,7 +144,10 @@ shape (``"path": "incremental"``), replica A's load shape
 device merge's rebuild (``"path": "device_merge"``), phase 12's
 restart and join over UDP (``"path": "udp"``), and phase 13's largest
 cold batch of a fleet node and a destination's first pooled flush after
-it adopts a migrated doc (``"path": "fleet"``); the last line is
+it adopts a migrated doc (``"path": "fleet"``), and phase 14's: a shard
+of the 4-way sharded converge (``"path": "shard"``), an entry of the
+segment step (``"path": "segments"``) and the two-tier step's union
+(``"path": "hierarchical"``); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
 """
@@ -478,6 +496,9 @@ def main() -> int:
     launches = {name: 0 for name in REPLACES}
     card_inputs: dict = {label: {} for label, _ in plans}
     device_results: dict = {}
+    # the scale trace's card results on the fleet and stream routes,
+    # which phase 14 holds its mesh mappings against
+    route_results: dict = {}
 
     def run_route(route: str, blobs, device: str, stream_phases=None):
         if route == "stream":
@@ -611,6 +632,7 @@ def main() -> int:
             same(label, card, cpu, "fleet route, card vs CPU")
         same(label, card, device_results[label],
              "fleet route vs device route, card")
+        route_results[(label, "fleet")] = card
         log(f"{label} [fleet]: card == "
             f"{'device route' if label.startswith('scale') else 'CPU == device route'}")
         busy_share(label, "fleet", blobs)
@@ -628,6 +650,7 @@ def main() -> int:
         card = replay_run("stream", label, blobs, "cuda", key=key)
         same(label, card, device_results[label],
              "stream route vs device route, card")
+        route_results[(label, "stream")] = card
         if not label.startswith("scale"):
             cpu = replay_run("stream", label, blobs, "cpu")
             same(label, card, cpu, "stream route, card vs CPU")
@@ -689,6 +712,9 @@ def main() -> int:
                     device_results, hold_kernel)
     done("12 sync over UDP")
 
+    # phase 14's tenants: phase 10's cold tenants and their digests
+    mt_cold = (fleet_tenants["cold"], fleet_tenants["cold_digests"])
+
     # ---- 13. the fleet control plane (before the timing, which it feeds)
     fl = fleet_control_phase(
         torch, kernels, packed_mod, traces, hold_kernel, fleet_tenants,
@@ -696,6 +722,19 @@ def main() -> int:
         json.dumps(device_results["trace_1000x100"].cache, sort_keys=True))
     del fleet_tenants
     done("13 fleet control plane")
+
+    # ---- 14. multi-device on a mesh of the card (before the timing,
+    # which it feeds)
+    scale = "scale_1000x1600"
+    mesh14 = multidevice_phase(
+        torch, rp, streaming, fleet, kernels, packed_mod, deleteset,
+        statevec, blobs_of,
+        {"device": device_results[scale],
+         "fleet": route_results[(scale, "fleet")],
+         "stream": route_results[(scale, "stream")]},
+        mt_cold, same, hold_kernel)
+    del mt_cold
+    done("14 multi-device mesh")
 
     # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
@@ -775,6 +814,17 @@ def main() -> int:
             r["site"] = site
         log(f"kernel times (fleet, {site}): " + json.dumps(rows))
         fleet_rows += rows
+    # ... and phase 14's call sites on a mesh of the card: each shard of
+    # the 4-way sharded converge at 1000 x 1600, each entry of the
+    # 4-entry segment step, and the 2 x 2 two-tier step's union
+    mesh_rows = []
+    for path, (seen, n) in mesh14.items():
+        counts = dict.fromkeys(seen, n) if isinstance(n, int) else n
+        rows = kernel_rows(torch, kernels, seen, counts, max_err)
+        for r in rows:
+            r["path"] = path
+        log(f"kernel times ({path}): " + json.dumps(rows))
+        mesh_rows += rows
     # how far a profiler trace (the busy shares above) can be trusted
     client, flags = card_inputs["scale_1000x1600"]["seg_argmax_scan"][0]
     checks = profiler_check(
@@ -787,7 +837,8 @@ def main() -> int:
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
     print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows
-                      + res_rows + udp_rows + fleet_rows}), flush=True)
+                      + res_rows + udp_rows + fleet_rows + mesh_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4113,6 +4164,373 @@ def fleet_control_phase(torch, kernels, packed_mod, traces, hold_kernel,
                       tenants, big_blobs, big_cache)
     fleet_subprocess("cuda")
     return out["rows"]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: multi-device on a mesh of the card
+# ---------------------------------------------------------------------------
+
+# the sharded cold replay's shard counts; the mesh of the stream route's
+# sharded stream shards; the mesh of the kernels line's sharded,
+# segment and replicated rows (its hierarchical mesh is 2 x 2)
+MESH_KS = (2, 4, 8)
+MESH_STREAM_K = 2
+MESH_K = 4
+# the ring delta: one replica an entry, as the reference requires, 8
+# fresh rows each over a 96-row shared history
+RING_REPLICAS = 8
+# the fleet fault plan (the reference's tests/test_faults.py:250)
+FAULT_PLAN = dict(seed=5, drop=0.4, partition_every=2, groups=2)
+# the spans a mesh mapping of fleet_replay reports
+FLEET14_SPANS = PHASES["fleet"] + ("pack", "converge.dispatch",
+                                   "converge.fetch", "fleet.seg_step")
+
+
+@contextmanager
+def env_set(name: str, value: str):
+    """``os.environ[name] = value`` for the block, restored after."""
+    import os
+
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def multidevice_phase(torch, rp, streaming, fleet, kernels, packed_mod,
+                      deleteset, statevec, blobs: dict, results: dict,
+                      mt_cold, same, hold_kernel,
+                      device: str = "cuda") -> dict:
+    """Phase 14: the multi-device layer on a mesh whose entries all lie
+    on the one card (``device="cpu"`` runs the same checks on the host,
+    at whatever size ``blobs`` holds). ``blobs`` holds the
+    ``scale_1000x1600`` and ``trace_1000x100`` traces, ``results`` the
+    ``"device"`` (phase 4), ``"fleet"`` (phase 5) and ``"stream"``
+    (phase 6) results of the first, ``mt_cold`` phase 10's cold tenants
+    and their digests.
+
+    (a) the sharded cold replay: one decode, then ``shard.stage`` and
+        ``converge`` at K = 2, 4, 8, each equal to phase 4 byte for
+        byte, one ``shard.dispatches``, the device state vector equal to
+        the host's, ``seg_argmax_scan`` and ``stream_scatter`` K calls
+        each (K launches on the card), every input held against the
+        plain version; then ``replay_trace`` with ``CRDT_TPU_SHARDS=4``;
+    (b) the stream route with ``CRDT_TPU_SHARDS=2``: every stream shard
+        sharded, equal to phase 6;
+    (c) ``fleet_replay`` in three mappings — ``"sharded"`` and
+        ``"segments"`` on a 4-entry mesh, the two-tier round on a 2 x 2
+        ``make_mesh2d`` — each equal to phase 5, ``ds_mask`` and
+        ``sv_deficit`` held on their inputs;
+    (d) ``MultiDocServer(shards=4)``: phase 10's cold tenants in one
+        tick, every digest equal to phase 10's, every batch of at least
+        ``CRDT_TPU_SHARD_MIN_ROWS`` rows sharded and no other;
+    (e) the ring delta on an 8-entry mesh, budgets below and above the
+        deficit: the card equal to the CPU field by field;
+    (f) ``GossipFaultPlan`` drop and partition rounds of the 1000 x 100
+        fleet on the 2 x 2 mesh: the healed round equals the fault-free
+        one field by field.
+
+    Returns the kernel inputs and launches of the kernels line's
+    ``"shard"``, ``"segments"`` and ``"hierarchical"`` rows."""
+    import numpy as np
+
+    from crdt_tpu_torch.models.multidoc import MultiDocServer
+    from crdt_tpu_torch.obs import (TickTimeline, Tracer, set_timeline,
+                                    set_tracer)
+    from crdt_tpu_torch.ops import shard as shard_ops
+    from crdt_tpu_torch.ops import staging
+    from crdt_tpu_torch.parallel import delta, gossip
+
+    on_card = device == "cuda"
+    pk_sites = ((packed_mod, "seg_argmax_scan"),
+                (packed_mod, "stream_scatter"))
+    fl_sites = ((deleteset, "ds_mask"), (statevec, "sv_deficit"))
+    t_phase = time.perf_counter()
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counted(run, sites):
+        """``run()`` with the launch counts zeroed just before and read
+        just after, the tracer and the timeline on and the kernels'
+        inputs captured. Returns (result, wall s, launches, inputs,
+        tracer report, timeline records)."""
+        tracer = set_tracer(Tracer(enabled=True))
+        tl = set_timeline(TickTimeline(enabled=True))
+        seen: dict = {}
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with capture_kernel_inputs(seen, *sites):
+            out = run()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        set_tracer(Tracer(enabled=False))
+        set_timeline(TickTimeline(enabled=False))
+        return out, wall, counts, seen, tracer.report(), tl.records()
+
+    def expect(what: str, counts: dict, seen: dict, want: dict) -> None:
+        """Each named kernel called ``want[name]`` times, and on the card
+        launched as often; the CPU launches nothing."""
+        calls = {k: len(seen.get(k, ())) for k in want}
+        launched = {k: counts[k] for k in want}
+        if calls != want or launched != (want if on_card
+                                         else dict.fromkeys(want, 0)):
+            raise AssertionError(f"{what}: calls {calls}, launches "
+                                 f"{launched}, want {want}")
+        for name, calls_ in seen.items():
+            for args in calls_:
+                hold_kernel(name, *args)
+
+    def spans(rep, names) -> dict:
+        return {n: round(rep["spans"][n]["total_s"], 6)
+                for n in names if n in rep["spans"]}
+
+    out: dict = {}
+    label = "scale_1000x1600"
+    scale = blobs[label]
+    want = results["device"]
+
+    def placed(mesh) -> list:
+        return [str(d) for d in gossip.entries(mesh)]
+
+    log(f"mesh entries: make_mesh({max(MESH_KS)}) on "
+        f"{placed(gossip.make_mesh(max(MESH_KS), device=device))}, "
+        f"make_mesh2d(2, 2) on "
+        f"{placed(gossip.make_mesh2d(2, 2, device=device))}")
+
+    # ---- (a) the sharded cold replay
+    t0 = time.perf_counter()
+    dec = rp.decode(scale)
+    cols, ds = rp.stage(dec)
+    n_rows = len(dec["client"])
+    snap = rp.compact(dec, ds)
+    log(f"mesh {label}: one decode + stage + compact for every K in "
+        f"{time.perf_counter() - t0:.3f} s ({n_rows} rows)")
+    if snap != want.snapshot:
+        raise AssertionError(f"mesh {label}: the snapshot != phase 4's")
+    for K in MESH_KS:
+        secs: dict = {}
+
+        def run():
+            with timing(secs, (shard_ops, "_partition", "partition"),
+                        (staging, "stage", "shard stage")):
+                t0 = time.perf_counter()
+                splan = shard_ops.stage(cols, n_shards=K, device=device)
+                secs["stage"] = time.perf_counter() - t0
+            if splan is None:
+                raise AssertionError(f"mesh {label}: K={K} staging "
+                                     "refused: the route was not taken")
+            t0 = time.perf_counter()
+            handle = shard_ops.converge_async(splan, device=device)
+            secs["dispatch"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = shard_ops.converge_fetch(handle)
+            secs["fetch"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            w, v, o = rp.gather(dec, ds, ("packed", res), device=device)
+            cache = rp.materialize(dec, ds, w, v, o)
+            secs["assembly"] = time.perf_counter() - t0
+            return splan, res, cache
+
+        (splan, res, cache), wall, counts, seen, rep, _ = counted(
+            run, pk_sites)
+        got = rp.ReplayResult(cache=cache, snapshot=snap, n_ops=n_rows,
+                              path="shard")
+        same(label, got, want, f"sharded converge K={K} vs phase 4")
+        disp = rep["counters"].get("shard.dispatches", 0)
+        if disp != 1:
+            raise AssertionError(f"mesh {label}: K={K} shard.dispatches "
+                                 f"{disp}")
+        host_sv = splan.sv_host.max(axis=0)
+        if not np.array_equal(res.global_sv[:len(res.sv_clients)],
+                              host_sv):
+            raise AssertionError(f"mesh {label}: K={K} device global_sv "
+                                 "!= sv_host.max(0)")
+        expect(f"mesh {label} K={K}", counts, seen,
+               {"seg_argmax_scan": K, "stream_scatter": K})
+        rows_k = [len(r) for r in splan.row_maps]
+        log(f"mesh {label} K={K}: == phase 4 byte for byte in {wall:.3f} "
+            f"s; partition {secs['partition']:.3f} s, {K} shard stages "
+            f"{secs['shard stage']:.3f} s ({secs['shard stage'] / K:.3f} s "
+            f"a shard), stage in all {secs['stage']:.3f} s, dispatch "
+            f"{secs['dispatch']:.3f} s, fetch {secs['fetch']:.3f} s, "
+            f"assembly {secs['assembly']:.3f} s; rows a shard {rows_k}; "
+            f"buckets S {splan.num_segments} B {splan.seq_bucket} M "
+            f"{splan.map_bucket}; wire {splan.sv_mode} "
+            f"{splan.wire.nbytes} bytes; global_sv == host; launches "
+            f"{counts}; kernels == plain on every shard's inputs")
+        if K == MESH_K:
+            out["shard"] = (seen, K)
+
+    with env_set(shard_ops.SHARD_ENV, str(MESH_K)):
+        res, wall, counts, seen, rep, _ = counted(
+            lambda: rp.replay_trace(scale, device=device), pk_sites)
+    same(label, res, want, f"replay_trace, CRDT_TPU_SHARDS={MESH_K}")
+    if rep["counters"].get("shard.dispatches", 0) != 1:
+        raise AssertionError(f"mesh {label}: replay_trace did not shard")
+    expect(f"mesh {label} replay_trace", counts, seen,
+           {"seg_argmax_scan": MESH_K, "stream_scatter": MESH_K})
+    log(f"mesh {label} [replay_trace, CRDT_TPU_SHARDS={MESH_K}]: == phase "
+        f"4 in {wall:.3f} s; phases (s) "
+        f"{json.dumps(spans(rep, PHASES['device']))}")
+
+    # ---- (b) the stream route with sharded stream shards
+    phases: dict = {}
+    with env_set(shard_ops.SHARD_ENV, str(MESH_STREAM_K)):
+        res, wall, counts, seen, rep, recs = counted(
+            lambda: streaming.stream_replay(scale, device=device,
+                                            phases=phases), pk_sites)
+    (tick,) = recs
+    n_stream = len(tick["dispatches"])
+    disp = rep["counters"].get("shard.dispatches", 0)
+    same(label, res, results["stream"],
+         f"stream route, CRDT_TPU_SHARDS={MESH_STREAM_K}, vs phase 6")
+    if res.path != "stream" or disp != n_stream or n_stream < 2:
+        raise AssertionError(f"mesh {label} [stream]: {disp} sharded of "
+                             f"{n_stream} stream shards ({res.path})")
+    each = MESH_STREAM_K * n_stream
+    expect(f"mesh {label} [stream]", counts, seen,
+           {"seg_argmax_scan": each, "stream_scatter": each})
+    log(f"mesh {label} [stream, CRDT_TPU_SHARDS={MESH_STREAM_K}]: "
+        f"{n_stream} stream shards, each sharded {MESH_STREAM_K} ways; == "
+        f"phase 6 in {wall:.3f} s; phases (s) {json.dumps(phases)}")
+
+    # ---- (c) fleet_replay in three mappings
+    for name, mesh, shard, sites, want_calls in (
+            ("sharded", gossip.make_mesh(MESH_K, device=device), "sharded",
+             pk_sites, {"seg_argmax_scan": MESH_K,
+                        "stream_scatter": MESH_K}),
+            ("segments", gossip.make_mesh(MESH_K, device=device),
+             "segments", fl_sites, {"ds_mask": MESH_K, "sv_deficit": 0}),
+            ("hierarchical", gossip.make_mesh2d(2, 2, device=device),
+             "replicas", fl_sites, {"ds_mask": 1, "sv_deficit": 1})):
+        res, wall, counts, seen, rep, _ = counted(
+            lambda: fleet.fleet_replay(scale, mesh=mesh, shard=shard),
+            sites)
+        same(label, res, results["fleet"], f"fleet_replay {name} vs phase 5")
+        path = "fleet-sharded" if shard == "sharded" else "fleet"
+        if res.path != path:
+            raise AssertionError(f"mesh {label} [fleet {name}]: path "
+                                 f"{res.path}")
+        expect(f"mesh {label} [fleet {name}]", counts, seen, want_calls)
+        shapes = {k: [[list(a.shape) if hasattr(a, "shape") else a
+                       for a in args] for args in v[:1]]
+                  for k, v in seen.items()}
+        log(f"mesh {label} [fleet {name}, mesh "
+            f"{list(mesh.devices.shape)}]: == phase 5 in {wall:.3f} s; "
+            f"phases (s) {json.dumps(spans(rep, FLEET14_SPANS))}; "
+            f"launches {counts}; first inputs {json.dumps(shapes)}")
+        if name != "sharded":
+            out[name] = (seen, want_calls)
+
+    # ---- (d) MultiDocServer(shards=4) on phase 10's cold tenants
+    docs, digests = mt_cold
+    srv = MultiDocServer(shards=MESH_K, device=device)
+    routes: list = []
+    enqueue = srv._dispatch_async
+
+    def spy(comb):
+        got = enqueue(comb)
+        routes.append((len(comb["client"]), got[0] if got else None))
+        return got
+
+    srv._dispatch_async = spy
+    for d, b in docs.items():
+        srv.submit_many(d, b)
+    rep_t, wall, counts, seen, _, _ = counted(srv.tick, pk_sites)
+    bad = [d for d in docs if srv.digest(d) != digests[d]]
+    if bad or rep_t.docs != len(docs) or rep_t.fallback_docs:
+        raise AssertionError(f"mesh multidoc: {len(bad)} digests != phase "
+                             f"10's; {rep_t}")
+    floor = shard_ops.min_rows()
+    wrong = [(n, r) for n, r in routes if (r == "shard") != (n >= floor)]
+    n_sh = sum(r == "shard" for _, r in routes)
+    if wrong or not n_sh:
+        raise AssertionError(f"mesh multidoc: batch routes {routes}")
+    each = MESH_K * n_sh + (rep_t.dispatches - n_sh)
+    expect("mesh multidoc", counts, seen,
+           {"seg_argmax_scan": each, "stream_scatter": each})
+    log(f"mesh multidoc [shards={MESH_K}]: {len(docs)} cold tenants in one "
+        f"tick, {wall:.3f} s; batches (rows, route) {routes}; "
+        f"{rep_t.dispatches} dispatches; every digest == phase 10's")
+    del srv
+
+    # ---- (e) the ring delta, card against CPU
+    rcols = delta.synth_resident_columns(RING_REPLICAS, 96, 8, seed=0)
+    names = ("sent_count",) + tuple(f"recv_{c}" for c in delta.COL_NAMES)
+    for budget in (4, 16):
+        outs = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            mesh = gossip.make_mesh(RING_REPLICAS, device=dev)
+            parts = [[torch.from_numpy(np.ascontiguousarray(
+                rcols[c][i:i + 1])).to(e)
+                for i, e in enumerate(gossip.entries(mesh))]
+                for c in delta.COL_NAMES]
+            t0 = time.perf_counter()
+            got = delta.make_ring_delta_step(
+                mesh, RING_REPLICAS + 2, budget)(*parts)
+            outs[dev] = [g.cpu().numpy() for g in got]
+            log(f"mesh ring delta [{dev}, budget {budget}]: "
+                f"{time.perf_counter() - t0:.3f} s")
+        a, b = outs[device], outs["cpu"]
+        for nm, x, y in zip(names, a, b):
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    not (x == y).all():
+                raise AssertionError(f"mesh ring delta: {nm} differs")
+        sent, valid = a[0], a[-1]
+        if not (sent == 8).all() or \
+                not (valid.sum(axis=1) == min(budget, 8)).all():
+            raise AssertionError(f"mesh ring delta: sent {sent}")
+    log(f"mesh ring delta ({RING_REPLICAS} entries, budgets 4 and 16): "
+        f"{device} == CPU field by field")
+
+    # ---- (f) the fault plan on the 1000 x 100 fleet
+    tr = fleet.load_trace(blobs["trace_1000x100"], replicas_multiple=4)
+    f2 = fleet.fleet_for_trace(tr, mesh=gossip.make_mesh2d(2, 2,
+                                                           device=device))
+    f1 = fleet.fleet_for_trace(tr, device=device)
+    R = tr.n_replicas
+
+    def as_cols(blk):
+        return {k: blk[i].astype(tr.cols[k].dtype)
+                for i, k in enumerate(gossip.COL_PACK_ORDER)}
+
+    def equal(a, b) -> bool:
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in a._fields)
+
+    t0 = time.perf_counter()
+    clean = f2.step(tr.cols, tr.dels)
+    if not equal(clean, f1.step(tr.cols, tr.dels)):
+        raise AssertionError("mesh faults: the 2 x 2 round != one entry's")
+    plan = gossip.GossipFaultPlan(**FAULT_PLAN)
+    packed_cols = gossip.pack_cols(tr.cols)
+    keep = plan.delivered_mask(0, R)
+    lossy = f2.step(as_cols(gossip.mask_packed(packed_cols, keep)), tr.dels)
+    if not 0 < keep.sum() < R or equal(lossy, clean):
+        raise AssertionError("mesh faults: the drop round lost nothing")
+    groups = plan.partition_masks(2, R)
+    if groups is None or sum(int(g.sum()) for g in groups) != R:
+        raise AssertionError("mesh faults: no partition round")
+    for g in groups:
+        f2.step(as_cols(gossip.mask_packed(packed_cols, g)), tr.dels)
+    healed = f2.step(tr.cols, tr.dels)
+    if not equal(healed, clean) or plan.partition_masks(1, R) is not None:
+        raise AssertionError("mesh faults: the healed round != fault-free")
+    log(f"mesh faults (1000 x 100, mesh [2, 2], {json.dumps(FAULT_PLAN)}): "
+        f"drop round withheld {R - int(keep.sum())} of {R} replicas, "
+        f"partition round {[int(g.sum()) for g in groups]}, healed round "
+        f"== fault-free field by field; {time.perf_counter() - t0:.3f} s")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def sync_warnings(torch, run) -> dict:

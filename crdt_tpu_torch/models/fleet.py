@@ -1,20 +1,23 @@
-"""ReplicaFleet — the replica-fleet round on one card.
+"""ReplicaFleet — the replica-fleet round, on one device or a mesh.
 
-The port's counterpart of ``crdt_tpu.models.fleet`` (its replicated
-mapping). The reference's scale axis is replica parallelism: N peers
-full-mesh gossiping updates and converging by CRDT merge (propagate at
-crdt.js:385,445; merge-on-receipt at crdt.js:294; the state-vector
-handshake at crdt.js:237-291). Here that whole swarm round is one
-launch sequence on the card, with the replica axis as a batch axis:
+The port's counterpart of ``crdt_tpu.models.fleet``. The reference's
+scale axis is replica parallelism: N peers full-mesh gossiping updates
+and converging by CRDT merge (propagate at crdt.js:385,445;
+merge-on-receipt at crdt.js:294; the state-vector handshake at
+crdt.js:237-291). Here that whole swarm round is one launch sequence,
+with the replica axis as a batch axis on one device, or spread over the
+entries of a mesh (:mod:`crdt_tpu_torch.parallel.mesh`) and gathered in
+two tiers on a (hosts, replicas) one:
 
     fleet = ReplicaFleet(n_replicas=1000, ops_per_replica=128)
     out = fleet.step(cols, dels)      # one gossip + merge round
 
-and :func:`fleet_replay` (``replay_trace(route="fleet")``) turns
-per-replica v1 blobs into one such round and assembles its outputs
-into the same cache and snapshot the cold replay gives. The
-segment-sharded and packed-sharded mappings need several devices
-(ROADMAP.md queue A item 9).
+:func:`fleet_replay` (``replay_trace(route="fleet")``) turns per-replica
+v1 blobs into one such round and assembles its outputs into the same
+cache and snapshot the cold replay gives; its ``shard=`` picks the
+mapping: the replicated round, the work-divided segment round
+(:class:`SegmentedFleet`) or the sharded packed converge
+(:mod:`crdt_tpu_torch.ops.shard`).
 """
 
 from __future__ import annotations
@@ -36,15 +39,20 @@ from crdt_tpu_torch.ops.device import (
 )
 from crdt_tpu_torch.parallel.delta import COL_NAMES, make_delta_gossip_step
 from crdt_tpu_torch.parallel.gossip import (
+    HOST_AXIS,
+    Mesh,
+    entries,
     fleet_out_sizes,
     make_gossip_step,
+    make_hierarchical_gossip_step,
+    make_segment_sharded_step,
     pack_cols,
     pack_dels,
+    segment_out_sizes,
     synth_columns,
     unpack_fleet_out,
 )
-
-_MULTI_DEVICE_ITEM = "ROADMAP.md queue A item 9 (multi-device)"
+from crdt_tpu_torch.parallel.mesh import mesh_for
 
 
 class FleetStep(NamedTuple):
@@ -63,31 +71,58 @@ class FleetStep(NamedTuple):
 
 
 class ReplicaFleet:
-    """A batch of replicas on one card.
+    """A batch of replicas on one device or over a mesh.
 
     Static shapes: `n_replicas` x `ops_per_replica` op columns,
-    `num_clients`-wide state vectors, `num_segments` convergence
-    slots."""
+    `num_clients`-wide state vectors, `num_segments` convergence slots.
+    ``mesh`` (default :func:`~crdt_tpu_torch.parallel.mesh.mesh_for`
+    ``(device, n_devices)``: one entry on one card or on the CPU)
+    spreads the replicas, which must divide over its entries: a
+    one-entry mesh runs :func:`make_gossip_step` on that device, a
+    (hosts, replicas) mesh the two-tier
+    :func:`make_hierarchical_gossip_step`, and a 1D mesh of several
+    entries the same step as one host of them."""
 
     def __init__(
         self,
         n_replicas: int,
         ops_per_replica: int,
         *,
+        mesh: Optional[Mesh] = None,
+        n_devices: Optional[int] = None,
         device="cuda",
         num_clients: Optional[int] = None,
         num_segments: Optional[int] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_for(device,
+                                                           n_devices)
+        devs = entries(self.mesh)
+        if n_replicas % len(devs):
+            raise ValueError(
+                f"n_replicas={n_replicas} must divide over {len(devs)} "
+                "mesh entries"
+            )
+        self.device = resolve_device(devs[0])
         self.n_replicas = n_replicas
         self.ops_per_replica = ops_per_replica
         self.num_clients = num_clients or n_replicas + 2
         total = n_replicas * ops_per_replica
         self.num_segments = num_segments or (
             1 << max(9, (total - 1).bit_length()))
-        self._step = make_gossip_step(
-            self.num_segments, self.num_clients, device=self.device
-        )
+        self._entries = None  # one device: no per-entry upload
+        if len(self.mesh.axis_names) == 2 or len(devs) > 1:
+            grid = self.mesh
+            if len(grid.axis_names) == 1:
+                grid = Mesh(grid.devices.reshape(1, -1),
+                            (HOST_AXIS, grid.axis_names[0]))
+            self._entries = devs
+            self._step = make_hierarchical_gossip_step(
+                grid, self.num_segments, self.num_clients
+            )
+        else:
+            self._step = make_gossip_step(
+                self.num_segments, self.num_clients, device=self.device
+            )
 
     def synth(
         self,
@@ -118,9 +153,20 @@ class ReplicaFleet:
         upload per operand, one launch sequence, one packed fetch."""
         tracer = get_tracer()
         with tracer.span("fleet.step"):
+            blk = pack_cols(cols)
+            if self._entries is None:
+                blk_on = xfer_put(blk, device=self.device,
+                                  label="fleet.cols")
+            else:
+                # each entry's replicas onto the entry, in mesh order
+                r = self.n_replicas // len(self._entries)
+                blk_on = [
+                    xfer_put(blk[:, k * r:(k + 1) * r], device=dev,
+                             label="fleet.cols")
+                    for k, dev in enumerate(self._entries)
+                ]
             out = self._step(
-                xfer_put(pack_cols(cols), device=self.device,
-                         label="fleet.cols"),
+                blk_on,
                 xfer_put(pack_dels(dels), device=self.device,
                          label="fleet.dels"),
             )
@@ -150,11 +196,14 @@ class ReplicaFleet:
         """One TARGETED anti-entropy round: ship only rows above the
         swarm floor, capped at ``budget`` per replica (see
         :mod:`crdt_tpu_torch.parallel.delta`). One upload per column,
-        one launch sequence, one packed fetch.
+        one launch sequence on the mesh's first entry, one packed
+        fetch. Requires a 1D mesh.
 
         Returns ``(svs, deficit, needed_count, delta_cols)`` where
         ``delta_cols`` is the gathered delta union as a column dict in
         the input columns' dtypes."""
+        if len(self.mesh.axis_names) != 1:
+            raise ValueError("delta rounds run on a 1D replica mesh")
         step = make_delta_gossip_step(
             self.num_clients, budget, device=self.device
         )
@@ -224,6 +273,8 @@ class FleetTrace(NamedTuple):
 def load_trace(
     blobs: Sequence[bytes],
     *,
+    replicas_multiple: int = 1,
+    ops_bucket: Optional[int] = None,
     dec: Optional[Dict] = None,
 ) -> FleetTrace:
     """Decode one v1 update blob PER REPLICA into the fleet's column
@@ -232,8 +283,11 @@ def load_trace(
 
     Ops appearing in several blobs (gossip redelivery) are fine: the
     convergence keeps the first representative of a duplicated id. The
-    union must be causally complete. ``dec`` reuses a caller-decoded
-    union.
+    union must be causally complete. ``replicas_multiple`` pads the
+    replica count (empty all-invalid replicas) so R divides over a mesh
+    of that many entries; ``ops_bucket`` pins N (padded per-replica op
+    capacity) so several traces share one fleet's shapes. ``dec``
+    reuses a caller-decoded union.
 
     Known cost: each blob is wire-decoded twice (once in the union for
     one consistent root/key interning, once alone for row
@@ -283,8 +337,15 @@ def load_trace(
         hit = union_id[rows] == bid
         per_rows.append(rows[hit].astype(np.int64))
 
-    R = max(len(blobs), 1)
-    N = bucket_pow2(max(max((len(r) for r in per_rows), default=1), 1))
+    r_raw = max(len(blobs), 1)
+    R = -(-r_raw // replicas_multiple) * replicas_multiple
+    N = ops_bucket or bucket_pow2(max(max(
+        (len(r) for r in per_rows), default=1), 1))
+    if any(len(r) > N for r in per_rows):
+        raise ValueError(
+            f"ops_bucket={N} below a replica's "
+            f"{max(len(r) for r in per_rows)} rows"
+        )
     row_map = np.full((R, N), -1, np.int64)
     for r, rows in enumerate(per_rows):
         row_map[r, : len(rows)] = rows
@@ -342,11 +403,15 @@ def load_trace(
     )
 
 
-def fleet_for_trace(trace: FleetTrace, *, device="cuda") -> ReplicaFleet:
+def fleet_for_trace(trace: FleetTrace, *, mesh: Optional[Mesh] = None,
+                    n_devices: Optional[int] = None,
+                    device="cuda") -> ReplicaFleet:
     """A fleet whose static shapes match ``trace``."""
     return ReplicaFleet(
         trace.n_replicas,
         trace.ops_per_replica,
+        mesh=mesh,
+        n_devices=n_devices,
         device=device,
         num_clients=trace.num_clients,
         num_segments=trace.num_segments,
@@ -387,10 +452,12 @@ def _winner_rows(rm: np.ndarray, winners: np.ndarray,
 
 
 def _seq_orders_from(dec, rm: np.ndarray, sorder: np.ndarray,
-                     sseg: np.ndarray, srank: np.ndarray) -> dict:
+                     sseg: np.ndarray, srank: np.ndarray,
+                     into: Optional[dict] = None) -> dict:
     """Vectorized per-sequence document orders: ranked positions ->
-    union rows grouped by segment, ordered by rank."""
-    seq_orders: dict = {}
+    union rows grouped by segment, ordered by rank (added to ``into``
+    when given)."""
+    seq_orders: dict = {} if into is None else into
     pos = np.flatnonzero(srank >= 0)
     if not len(pos):
         return seq_orders
@@ -411,56 +478,363 @@ def _seq_orders_from(dec, rm: np.ndarray, sorder: np.ndarray,
     return seq_orders
 
 
+class SegStep(NamedTuple):
+    """Outputs of one segment-sharded round (local spaces per entry;
+    see :func:`crdt_tpu_torch.parallel.gossip.make_segment_sharded_step`).
+    ``svs``/``global_sv`` are the trace's host-built handshake vectors,
+    carried here for parity with :class:`FleetStep`."""
+
+    svs: np.ndarray             # [R, C] per-replica own-op vectors
+    global_sv: np.ndarray       # [C]
+    deficit: np.ndarray         # [R, R]
+    winners: np.ndarray         # [nd, S] local id-sorted winner indices
+    winner_visible: np.ndarray  # [nd, S]
+    seq_order: np.ndarray       # [nd, N_d] local id-sort permutations
+    seq_seg: np.ndarray         # [nd, N_d] per-entry dense sequence ids
+    seq_rank: np.ndarray        # [nd, N_d]
+    seq_len: np.ndarray         # [nd, S]
+    map_order: np.ndarray       # [nd, N_d]
+
+
+class ShardedTrace(NamedTuple):
+    """A :class:`FleetTrace` re-partitioned BY SEGMENT over a mesh: one
+    entry owns every row of each (parent, key) chain and each sequence,
+    so convergence divides across entries instead of replicating.
+    ``row_map`` is [nd, N_d] -> union decode row."""
+
+    cols: Dict[str, np.ndarray]  # [nd, N_d], incl. "replica"
+    dels: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    row_map: np.ndarray
+    dec: Dict
+    ds: object
+    n_replicas: int
+    num_clients: int
+    num_segments: int  # per-entry bound
+    svs: np.ndarray    # [R, C] host-built per-replica own-op vectors
+    global_sv: np.ndarray  # [C]
+
+    @property
+    def n_devices(self) -> int:
+        return self.row_map.shape[0]
+
+    @property
+    def n_ops(self) -> int:
+        return int((self.row_map >= 0).sum())
+
+
+def shard_trace(trace: FleetTrace, n_devices: int) -> ShardedTrace:
+    """Partition a replica-sharded trace's union BY SEGMENT into
+    ``n_devices`` balanced shards (greedy largest-first by row count).
+    Rows keep a ``replica`` attribution column so the SV handshake can
+    still produce every replica's own-op vector."""
+    N = trace.ops_per_replica
+    flat_valid = trace.cols["valid"].reshape(-1)
+    idx = np.flatnonzero(flat_valid)
+    replica = (idx // N).astype(np.int32)
+    cf = {k: v.reshape(-1)[idx] for k, v in trace.cols.items()}
+    union_rows = trace.row_map.reshape(-1)[idx]
+
+    segkey = replay.segment_key(cf["parent_a"], cf["key_id"])
+    uniq_sk, seg_inv, seg_counts = np.unique(
+        segkey, return_inverse=True, return_counts=True
+    )
+    # greedy balance: largest segments first, always into the lightest
+    # bin (a single huge sequence still bounds the critical path)
+    bins = np.zeros(len(uniq_sk), np.int32)
+    loads = np.zeros(n_devices, np.int64)
+    segs_per = np.zeros(n_devices, np.int64)
+    for s in np.argsort(-seg_counts):
+        b = int(np.argmin(loads))
+        bins[s] = b
+        loads[b] += int(seg_counts[s])
+        segs_per[b] += 1
+    row_bin = bins[seg_inv]
+
+    N_d = bucket_pow2(max(int(loads.max()), 16))
+    nd = n_devices
+    defaults = {
+        "client": 0, "clock": 0, "parent_is_root": False,
+        "parent_a": -2, "parent_b": -2, "key_id": -1,
+        "origin_client": -1, "origin_clock": -1, "valid": False,
+    }
+    cols = {
+        k: np.full((nd, N_d), fill, dtype=cf[k].dtype)
+        for k, fill in defaults.items()
+    }
+    cols["replica"] = np.zeros((nd, N_d), np.int32)
+    row_map = np.full((nd, N_d), -1, np.int64)
+    for b in range(nd):
+        sel = np.flatnonzero(row_bin == b)
+        for k in defaults:
+            cols[k][b, : len(sel)] = cf[k][sel]
+        cols["replica"][b, : len(sel)] = replica[sel]
+        row_map[b, : len(sel)] = union_rows[sel]
+    # the handshake's per-replica own-op vectors: a pure O(rows)
+    # function of the staged columns, built here once on the host; the
+    # mesh keeps only the O(R^2 C) pairwise deficit, rows divided
+    R = trace.n_replicas
+    C = trace.num_clients
+    svs = np.zeros((R, C), np.int64)
+    if len(idx):
+        np.maximum.at(
+            svs,
+            (replica, cf["client"].astype(np.int64)),
+            cf["clock"].astype(np.int64) + 1,
+        )
+    return ShardedTrace(
+        cols=cols,
+        dels=trace.dels,
+        row_map=row_map,
+        dec=trace.dec,
+        ds=trace.ds,
+        n_replicas=R,
+        num_clients=C,
+        num_segments=bucket_pow2(max(int(segs_per.max()), 16)),
+        svs=svs,
+        global_sv=svs.max(axis=0) if R else np.zeros(C, np.int64),
+    )
+
+
+class SegmentedFleet:
+    """The segment-sharded sibling of :class:`ReplicaFleet` — the mode
+    where the mesh DIVIDES merge work instead of replicating it. Static
+    shapes come from the staged trace; any trace staged with the same
+    buckets reuses the fleet."""
+
+    def __init__(
+        self,
+        sharded: ShardedTrace,
+        *,
+        mesh: Optional[Mesh] = None,
+        n_devices: Optional[int] = None,
+        device="cuda",
+    ):
+        self.mesh = mesh if mesh is not None else mesh_for(device,
+                                                           n_devices)
+        self._entries = entries(self.mesh)
+        nd = len(self._entries)
+        if sharded.n_devices != nd:
+            raise ValueError(
+                f"trace sharded for {sharded.n_devices} devices, "
+                f"mesh has {nd}"
+            )
+        self.device = resolve_device(self._entries[0])
+        self.num_clients = sharded.num_clients
+        self.num_segments = sharded.num_segments
+        self.n_replicas = sharded.n_replicas
+        self._step = make_segment_sharded_step(
+            self.mesh,
+            num_segments=sharded.num_segments,
+            n_replicas=sharded.n_replicas,
+        )
+
+    def step(self, sharded: ShardedTrace) -> SegStep:
+        """One upload of each entry's block onto it (and of the vectors
+        and deletes onto the first entry), the per-entry launch
+        sequences, one packed fetch (the entries' blocks gathered into
+        one vector)."""
+        # reuse is only sound when the trace fits the bounds this fleet
+        # was built with: a larger segment bucket would overflow the
+        # segment table, and a replica or mesh mismatch would unpack the
+        # output vector at wrong offsets
+        nd_mesh = len(self._entries)
+        if (
+            sharded.n_devices != nd_mesh
+            or sharded.n_replicas != self.n_replicas
+            or sharded.num_segments > self.num_segments
+        ):
+            raise ValueError(
+                f"sharded trace (devices={sharded.n_devices}, "
+                f"replicas={sharded.n_replicas}, "
+                f"segments={sharded.num_segments}) does not fit the "
+                f"SegmentedFleet (devices={nd_mesh}, "
+                f"replicas={self.n_replicas}, "
+                f"segments={self.num_segments})"
+            )
+        tracer = get_tracer()
+        nd, N_d = sharded.row_map.shape
+        R = self.n_replicas
+        blk = -(-R // nd)
+        with tracer.span("fleet.seg_step"):
+            packed = pack_cols(sharded.cols)  # [9, nd, N_d]
+            parts = [
+                xfer_put(packed[:, d], device=dev, label="fleet.cols")
+                for d, dev in enumerate(self._entries)
+            ]
+            out = self._step(
+                parts,
+                xfer_put(sharded.svs, device=self.device,
+                         label="fleet.svs"),
+                xfer_put(pack_dels(sharded.dels), device=self.device,
+                         label="fleet.dels"),
+            )
+            vec = xfer_fetch(out, label="fleet.out").reshape(nd, -1)
+        sizes = segment_out_sizes(blk, R, N_d, self.num_segments)
+        parts_out: Dict[str, np.ndarray] = {}
+        off = 0
+        for name, size in sizes:
+            parts_out[name] = vec[:, off: off + size]
+            off += size
+        deficit = parts_out["deficit"].reshape(nd * blk, R)[:R]
+        return SegStep(
+            svs=sharded.svs,
+            global_sv=sharded.global_sv,
+            deficit=deficit,
+            winners=parts_out["winners"],
+            winner_visible=parts_out["winner_visible"],
+            seq_order=parts_out["seq_order"],
+            seq_seg=parts_out["seq_seg"],
+            seq_rank=parts_out["seq_rank"],
+            seq_len=parts_out["seq_len"],
+            map_order=parts_out["map_order"],
+        )
+
+
+def gather_sharded(sharded: ShardedTrace, out: SegStep, *,
+                   device) -> Tuple[list, list, dict]:
+    """Assemble a segment-sharded round back into document form (the
+    per-entry blocks are independent segment sets, so assembly is a
+    concatenation keyed by (entry, local segment)); right-bearing
+    parents take the host detour, ranking on ``device``."""
+    dec, ds = sharded.dec, sharded.ds
+    win_rows: List[int] = []
+    seq_orders: dict = {}
+    for d in range(sharded.n_devices):  # disjoint segments: no merging
+        rm = sharded.row_map[d]
+        win_rows.extend(_winner_rows(
+            rm, np.asarray(out.winners[d]), np.asarray(out.map_order[d])
+        ))
+        _seq_orders_from(
+            dec, rm,
+            np.asarray(out.seq_order[d]),
+            np.asarray(out.seq_seg[d]),
+            np.asarray(out.seq_rank[d]),
+            into=seq_orders,
+        )
+    return replay.finish_assembly(dec, ds, win_rows, seq_orders,
+                                  device=device)
+
+
 def fleet_replay(
     blobs: Sequence[bytes],
     *,
     device="cuda",
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
     trace: Optional[FleetTrace] = None,
     fleet: Optional[ReplicaFleet] = None,
     shard: str = "auto",
 ) -> replay.ReplayResult:
     """One-shot PRODUCT entry: per-replica update blobs in, converged
     cache + compacted snapshot out, convergence computed as ONE gossip
-    + merge round on ``device`` (the card unless the caller asks for
-    the CPU). This is ``replay_trace(route="fleet")``'s engine.
+    + merge round over a mesh (``mesh``, else the fleet's, else
+    :func:`~crdt_tpu_torch.parallel.mesh.mesh_for` ``(device,
+    n_devices)``: one entry on one card or on the CPU). This is
+    ``replay_trace(route="fleet")``'s engine.
 
-    ``shard``: ``"auto"`` and ``"replicas"`` run the replicated round
-    (on one card the reference's auto resolves to it too);
-    ``"segments"`` and ``"sharded"`` divide the work over several
-    devices and raise ``NotImplementedError`` until that is ported."""
-    if shard in ("segments", "sharded"):
-        raise NotImplementedError(
-            f"shard={shard!r} divides the round over several devices, "
-            f"which is not ported yet ({_MULTI_DEVICE_ITEM})"
-        )
-    if shard not in ("auto", "replicas"):
+    ``shard`` picks the mapping:
+
+    - ``"auto"`` (default) — ``"sharded"`` when the mesh has more than
+      one entry (and no prebuilt ``trace``/``fleet`` pins the
+      replicated layout) and the union reaches
+      ``CRDT_TPU_SHARD_MIN_ROWS``, else ``"replicas"``;
+    - ``"sharded"`` — the union's staged PACKED layout partitions by
+      whole segments over the mesh
+      (:mod:`crdt_tpu_torch.ops.shard`); byte-identical to the one-device
+      cold replay. A union the sharded stager refuses falls through to
+      ``"replicas"``, reusing the decoded union;
+    - ``"replicas"`` — the reference's full-mesh shape: every replica's
+      columns gathered, the union converged once;
+    - ``"segments"`` — the work-divided round over the general kernels
+      (:class:`SegmentedFleet`): each entry converges only its segment
+      shard."""
+    if shard not in ("auto", "replicas", "sharded", "segments"):
         raise ValueError(f"unknown shard mode {shard!r}")
-    dev = fleet.device if fleet is not None else resolve_device(device)
+    if mesh is None and fleet is not None:
+        mesh = fleet.mesh
+    if mesh is None:
+        mesh = mesh_for(device, n_devices)
+    nd = mesh.devices.size
+    dev = resolve_device(entries(mesh)[0])
     tracer = get_tracer()
-    if trace is None:
-        dec = replay.decode(blobs)
-        with tracer.span("fleet.load"):
-            trace = load_trace(blobs, dec=dec)
-    if fleet is None:
-        fleet = fleet_for_trace(trace, device=dev)
-    elif (
-        trace.num_clients > fleet.num_clients
-        or trace.num_segments > fleet.num_segments
-        or trace.row_map.shape != (fleet.n_replicas, fleet.ops_per_replica)
-    ):
-        # shapes alone can match a fleet whose client/segment tables are
-        # too small; reuse requires the trace to fit its bounds
-        raise ValueError(
-            f"trace buckets (R,N)={trace.row_map.shape} "
-            f"clients={trace.num_clients} "
-            f"segments={trace.num_segments} do not fit the reused "
-            f"fleet (R,N)=({fleet.n_replicas},{fleet.ops_per_replica}) "
-            f"clients={fleet.num_clients} "
-            f"segments={fleet.num_segments}"
-        )
-    out = fleet.step(trace.cols, trace.dels)
-    with tracer.span("gather"):
-        win_rows, win_vis, seq_orders = gather_fleet(trace, out, device=dev)
+    auto = shard == "auto"
+    if auto:
+        # a caller-prebuilt trace/fleet pins the replicated layout
+        shard = ("sharded" if nd > 1 and fleet is None and trace is None
+                 else "replicas")
+    shared_dec = None
+    if shard == "sharded":
+        from crdt_tpu_torch.ops import shard as shard_ops
+
+        # the sharded route needs only the decoded UNION, never the
+        # replicated [R, N] layout load_trace builds
+        dec = trace.dec if trace is not None else replay.decode(blobs)
+        # an auto-resolved mapping honors the size gate BEFORE paying
+        # the staging pass (an explicit "sharded" always shards)
+        splan = None
+        if not auto or shard_ops.active_for(len(dec["client"]), nd):
+            cols, ds = replay.stage(dec)
+            splan = shard_ops.stage(cols, n_shards=nd)
+        if splan is not None:
+            res = shard_ops.converge(splan, mesh=mesh)
+            with tracer.span("gather"):
+                win_rows, win_vis, seq_orders = replay.gather(
+                    dec, ds, ("packed", res), device=dev)
+            cache = replay.materialize(dec, ds, win_rows, win_vis,
+                                       seq_orders)
+            return replay.ReplayResult(
+                cache=cache,
+                snapshot=replay.compact(dec, ds),
+                n_ops=len(dec["client"]),
+                path="fleet-sharded",
+            )
+        # too small (auto) or past the packed bounds: the replicated
+        # mapping, reusing the decoded union; its trace needs R padded
+        # to the mesh
+        shard = "replicas"
+        if trace is None:
+            shared_dec = dec
+        elif trace.n_replicas % nd:
+            trace = None
+    if shard == "segments":
+        if trace is None:
+            dec = replay.decode(blobs)
+            with tracer.span("fleet.load"):
+                trace = load_trace(blobs, dec=dec)
+        sharded = shard_trace(trace, nd)
+        out = SegmentedFleet(sharded, mesh=mesh).step(sharded)
+        with tracer.span("gather"):
+            win_rows, win_vis, seq_orders = gather_sharded(
+                sharded, out, device=dev)
+    else:
+        if trace is None:
+            dec = shared_dec if shared_dec is not None else \
+                replay.decode(blobs)
+            with tracer.span("fleet.load"):
+                trace = load_trace(blobs, replicas_multiple=nd, dec=dec)
+        if fleet is None:
+            fleet = fleet_for_trace(trace, mesh=mesh)
+        elif (
+            trace.num_clients > fleet.num_clients
+            or trace.num_segments > fleet.num_segments
+            or trace.row_map.shape
+            != (fleet.n_replicas, fleet.ops_per_replica)
+        ):
+            # shapes alone can match a fleet whose client/segment
+            # tables are too small; reuse requires the trace to fit
+            raise ValueError(
+                f"trace buckets (R,N)={trace.row_map.shape} "
+                f"clients={trace.num_clients} "
+                f"segments={trace.num_segments} do not fit the reused "
+                f"fleet (R,N)=({fleet.n_replicas},"
+                f"{fleet.ops_per_replica}) "
+                f"clients={fleet.num_clients} "
+                f"segments={fleet.num_segments}"
+            )
+        out = fleet.step(trace.cols, trace.dels)
+        with tracer.span("gather"):
+            win_rows, win_vis, seq_orders = gather_fleet(trace, out,
+                                                         device=dev)
     cache = replay.materialize(trace.dec, trace.ds, win_rows, win_vis,
                                seq_orders)
     return replay.ReplayResult(

@@ -10,9 +10,10 @@ packing many docs' histories into ONE fused converge per tick, and
 makes the STEADY STATE — a small delta landing on a large doc the
 server already converged — cost a delta, not a cold replay.
 
-The sharded route of the reference (whole docs partitioned across
-several devices, ``shards=``) is ROADMAP queue A item 9; ``shards``
-above 1 raises ``NotImplementedError`` naming it.
+``shards=`` (above 1) sends a big enough cold batch down the sharded
+route (:mod:`crdt_tpu_torch.ops.shard`): whole docs partitioned over
+the entries of a mesh of ``device``'s type, one launch sequence an
+entry, per-doc outputs unchanged.
 
 The cold engine is the round-14 staging tentpole: doc-id is a
 first-class segment column in :mod:`crdt_tpu_torch.ops.packed` (client ids
@@ -138,6 +139,7 @@ from crdt_tpu_torch.obs.slo import SLOLedger
 from crdt_tpu_torch.obs.timeline import get_timeline
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed, staging
+from crdt_tpu_torch.ops import shard as shard_ops
 from crdt_tpu_torch.ops.device import resolve_device
 
 _MAX_ROWS_ENV = "CRDT_TPU_MT_MAX_ROWS"
@@ -146,8 +148,6 @@ _PENDING_UPDATES_ENV = "CRDT_TPU_MT_PENDING_UPDATES"
 _RESIDENT_BYTES_ENV = "CRDT_TPU_MT_RESIDENT_BYTES"
 _DELTA_TICKS_ENV = "CRDT_TPU_MT_DELTA_TICKS"
 _POOL_BYTES_ENV = "CRDT_TPU_MT_POOL_BYTES"
-# where the multi-device (sharded) route is queued
-_SHARD_ITEM = "ROADMAP.md queue A item 9 (multi-device)"
 
 
 def _env_int(name: str, default: int) -> int:
@@ -328,11 +328,6 @@ class MultiDocServer:
                  checkpoint_every_ticks: Optional[int] = None,
                  checkpoint_every_bytes: Optional[int] = None,
                  device="cuda"):
-        if shards is not None and shards > 1:
-            raise NotImplementedError(
-                f"MultiDocServer(shards={shards}) is not ported yet "
-                f"({_SHARD_ITEM}); shards=None or 1 is one device"
-            )
         self.device = resolve_device(device)
         self.max_rows = (max_rows_per_dispatch
                          if max_rows_per_dispatch is not None
@@ -1363,10 +1358,12 @@ class MultiDocServer:
         """Fetch one in-flight batch dispatch, unpack per doc, stamp
         latencies/service bookkeeping. ``tok`` closes the dispatch's
         timeline window; the fetch span is the tick's stall."""
-        live, comb, row_off, (_route, h) = work
+        live, comb, row_off, (route, h) = work
+        fetch = (shard_ops.converge_fetch if route == "shard"
+                 else packed.converge_fetch)
         tl = get_timeline()
         t0 = time.perf_counter()
-        res = packed.converge_fetch(h)
+        res = fetch(h)
         t1 = time.perf_counter()
         tl.dispatch_end(tok, t0, t1)
         with tl.phase("unpack"):
@@ -1407,10 +1404,19 @@ class MultiDocServer:
 
     def _dispatch_async(self, comb):
         """Enqueue one converge dispatch over the combined multi-doc
-        columns (the one-device packed plan). Returns a (route, handle)
-        pair for :meth:`_finish_batch`, or None when staging refused.
-        Nothing here waits on the device: the fetch in
-        :meth:`_finish_batch` is the batch's one sync."""
+        columns: the sharded route when active (partitioned by whole
+        docs over ``shards`` mesh entries), the one-device packed plan
+        otherwise. Returns a (route, handle) pair for
+        :meth:`_finish_batch`, or None when staging refused. Nothing
+        here waits on the device: the fetch in :meth:`_finish_batch`
+        is the batch's one sync."""
+        n = len(comb["client"])
+        if shard_ops.active_for(n, self.shards, device=self.device):
+            splan = shard_ops.stage(comb, n_shards=self.shards,
+                                    device=self.device)
+            if splan is not None:
+                return ("shard", shard_ops.converge_async(
+                    splan, device=self.device))
         plan = staging.stage(comb)
         if plan is None:
             return None

@@ -102,8 +102,23 @@ def converge(cols: Dict[str, np.ndarray], *,
     ``clients`` only affects the RESIDENT fallback (it seeds that
     path's client table). The packed plan interns its own
     order-preserving table, which is equivalent for convergence: the
-    sibling rules compare clients only through a monotone mapping."""
+    sibling rules compare clients only through a monotone mapping.
+
+    Sharded: when more than one shard resolves for ``device``'s type and
+    the union is big enough (``CRDT_TPU_SHARDS`` /
+    ``CRDT_TPU_SHARD_MIN_ROWS``; :func:`crdt_tpu_torch.ops.shard.
+    active_for` — one card resolves one shard), the union partitions by
+    whole segments over a mesh of that many entries and converges with
+    one launch sequence an entry; byte-identical outputs
+    (tests/test_torch_shard.py). A union the sharded stager refuses
+    takes the one-device path."""
+    from crdt_tpu_torch.ops import shard as shard_ops
+
     dev = resolve_device(device)
+    if shard_ops.active_for(len(cols["client"]), device=dev):
+        splan = shard_ops.stage(cols, device=dev)
+        if splan is not None:
+            return ("packed", shard_ops.converge(splan, device=dev))
     put = None
     if len(cols["client"]) >= staging.EAGER_PUT_MIN_ROWS:
         put = partial(xfer_put, device=dev)

@@ -312,9 +312,12 @@ def stream_replay(
     the whole union down the one-shot fallback (``path`` is
     ``"stream-fallback"``, ``phases["fallback"]`` True). ``phases``,
     when given, receives per-stage busy seconds plus the
-    overlap accounting of :func:`overlap_stats`. The reference's
-    multi-device shard route is not ported (ROADMAP.md queue A item 9):
-    every shard converges on the one ``device``."""
+    overlap accounting of :func:`overlap_stats`. A stream shard big
+    enough for the sharded route (:func:`crdt_tpu_torch.ops.shard.
+    active_for`) converges over a mesh of ``device``'s type with the
+    same async enqueue and fetch in the consumer."""
+    from crdt_tpu_torch.ops import shard as shard_ops
+
     dev = resolve_device(device)
     t_wall0 = time.perf_counter()
     ph = _Phases()
@@ -375,19 +378,32 @@ def stream_replay(
         try:
             for g, rows_g in enumerate(shard_rows):
                 sub = {k: v[rows_g] for k, v in cols.items()}
-                # eager per-section shipping is gated on THIS shard's
-                # row count, as the one-shot converge gates the union's
-                put = None
-                if len(rows_g) >= staging.EAGER_PUT_MIN_ROWS:
-                    put = partial(xfer_put, device=dev)
                 with on_stream(g):
-                    plan = ph.timed("pack", staging.stage, sub, put=put)
+                    # a big enough stream shard converges sharded over
+                    # the mesh; the pipeline shape is unchanged
+                    plan = None
+                    eng = packed
+                    if shard_ops.active_for(len(rows_g), device=dev):
+                        plan = ph.timed("pack", shard_ops.stage, sub,
+                                        device=dev)
+                        if plan is not None:
+                            eng = shard_ops
+                    if plan is None:
+                        # eager per-section shipping is gated on THIS
+                        # shard's row count, as the one-shot converge
+                        # gates the union's
+                        put = None
+                        if len(rows_g) >= staging.EAGER_PUT_MIN_ROWS:
+                            put = partial(xfer_put, device=dev)
+                        plan = ph.timed("pack", staging.stage, sub,
+                                        put=put)
                     if plan is None:
                         q.put(("unstageable", None, None))
                         return
                     with device_annotation(f"crdt.stream.shard{g}"):
-                        handle = packed.converge_async(plan, device=dev)
-                q.put(("shard", (g, handle, time.perf_counter()), rows_g))
+                        handle = eng.converge_async(plan, device=dev)
+                q.put(("shard", (g, eng, handle, time.perf_counter()),
+                       rows_g))
             # compact is pure decode-side work: it runs here, inside
             # the window where the consumer is fetching/materializing
             snap_box["snap"] = ph.timed("compact", rp.compact, dec, ds)
@@ -417,11 +433,11 @@ def stream_replay(
             if kind == "unstageable":
                 unstageable = True
                 break
-            g, handle, t_enq = payload
+            g, eng, handle, t_enq = payload
             tok = tl.dispatch_begin(t=t_enq)
             t0 = time.perf_counter()
             with on_stream(g):  # fetch on the shard's own stream
-                res = packed.converge_fetch(handle)  # the shard's sync
+                res = eng.converge_fetch(handle)  # the shard's sync
             t1 = time.perf_counter()
             tl.dispatch_end(tok, t0, t1)
             ph.add("converge_wait", t1 - t0)

@@ -47,6 +47,13 @@ def _stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launching_on(t: torch.Tensor):
+    """Make ``t``'s card the current one for a launch: a launch takes
+    the stream of the tensor's card, which must be the current card's
+    (a mesh may spread its entries over several)."""
+    return torch.cuda.device(t.device)
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous with its data 16-byte aligned, as the kernels'
     16-byte loads take it: ``t`` itself when it is, else a copy (a view
@@ -111,10 +118,11 @@ def seg_argmax_scan(client: torch.Tensor,
     out = torch.empty(n, dtype=torch.int32, device=client.device)
     scratch = torch.empty(lib.seg_argmax_scan_scratch_words(n),
                           dtype=torch.int64, device=client.device)
-    _build.check(lib.seg_argmax_scan_launch(
-        client.data_ptr(), flags.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), n, _stream_handle(client),
-    ), "seg_argmax_scan launch")
+    with _launching_on(client):
+        _build.check(lib.seg_argmax_scan_launch(
+            client.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, _stream_handle(client),
+        ), "seg_argmax_scan launch")
     seg_argmax_scan.launches += 1
     return out
 
@@ -153,10 +161,11 @@ def stream_scatter(pos: torch.Tensor, n_out: int) -> torch.Tensor:
     lib = _build.library("stream_scatter")
     pos = pos.contiguous()
     out = torch.empty(n_out, dtype=torch.int32, device=pos.device)
-    _build.check(lib.stream_scatter_launch(
-        pos.data_ptr(), pos.shape[0], out.data_ptr(), n_out,
-        _stream_handle(pos),
-    ), "stream_scatter launch")
+    with _launching_on(pos):
+        _build.check(lib.stream_scatter_launch(
+            pos.data_ptr(), pos.shape[0], out.data_ptr(), n_out,
+            _stream_handle(pos),
+        ), "stream_scatter launch")
     stream_scatter.launches += 1
     return out
 
@@ -250,10 +259,11 @@ def ds_mask_prepare(d_client: torch.Tensor, d_start: torch.Tensor,
     d = dc.shape[0]
     scratch = torch.empty(lib.ds_mask_scratch_words(d), dtype=torch.int64,
                           device=dc.device)
-    _build.check(lib.ds_mask_prepare(
-        dc.data_ptr(), ds_.data_ptr(), de.data_ptr(), d, scratch.data_ptr(),
-        _stream_handle(dc),
-    ), "ds_mask prepare")
+    with _launching_on(dc):
+        _build.check(lib.ds_mask_prepare(
+            dc.data_ptr(), ds_.data_ptr(), de.data_ptr(), d,
+            scratch.data_ptr(), _stream_handle(dc),
+        ), "ds_mask prepare")
     return scratch
 
 
@@ -276,10 +286,11 @@ def ds_mask_search(client: torch.Tensor, clock: torch.Tensor,
     valid = valid.to(torch.bool).contiguous()
     n = client.shape[0]
     out = torch.empty(n, dtype=torch.bool, device=client.device)
-    _build.check(lib.ds_mask_search(
-        client.data_ptr(), clock.data_ptr(), valid.data_ptr(), n, d,
-        scratch.data_ptr(), out.data_ptr(), _stream_handle(client),
-    ), "ds_mask search")
+    with _launching_on(client):
+        _build.check(lib.ds_mask_search(
+            client.data_ptr(), clock.data_ptr(), valid.data_ptr(), n, d,
+            scratch.data_ptr(), out.data_ptr(), _stream_handle(client),
+        ), "ds_mask search")
     return out
 
 
@@ -376,10 +387,11 @@ def sv_deficit(svs: torch.Tensor) -> torch.Tensor:
     if r == 0:
         return out
     sums = torch.empty(r, dtype=torch.int64, device=svs.device)
-    _build.check(lib.sv_deficit_launch(
-        svs.data_ptr(), r, c, sums.data_ptr(), out.data_ptr(),
-        _stream_handle(svs),
-    ), "sv_deficit launch")
+    with _launching_on(svs):
+        _build.check(lib.sv_deficit_launch(
+            svs.data_ptr(), r, c, sums.data_ptr(), out.data_ptr(),
+            _stream_handle(svs),
+        ), "sv_deficit launch")
     sv_deficit.launches += 1
     return out
 

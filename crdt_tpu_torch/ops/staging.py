@@ -9,8 +9,11 @@ half (:mod:`crdt_tpu_torch.ops.packed`) uploads once and converges in
 one launch sequence. Staging is pure numpy and byte-identical to the
 reference stager, field by field (tests/test_torch_packed.py).
 
-The reference's multi-chip sharder seams (``_sections``, forced
-encodings) are left out: the port runs on one card.
+Two seams serve the mesh sharder (:mod:`crdt_tpu_torch.ops.shard`):
+``stage(cols, _sections=list)`` runs the layout alone and hands back
+the named sections unencoded, and ``_encode_sections(..., force=)``
+pins every section's encoding so all shards of one sharded plan share
+one encoding tuple.
 """
 
 from __future__ import annotations
@@ -191,21 +194,34 @@ def _split_hi_lo(row: np.ndarray):
     return hi, lo
 
 
-def _encode_sections(named, wide: bool):
+def _encode_sections(named, wide: bool, force=None):
     """[(name, int-array)] -> (flat staged array, enc tuple, widths).
     Narrow: each section becomes one int16 stretch via its preferred
     encoder, or two exact hi/lo stretches when the encoder refuses.
-    Wide: one int32 stretch per section."""
+    Wide: one int32 stretch per section.
+
+    ``force`` (a per-section kind tuple aligned with ``named``) pins
+    each section's encoding — the mesh sharder uses it so every shard
+    of one sharded plan shares ONE encoding tuple. Forcing 'hilo' on a
+    section that would have narrowed is exact, never wrong — it only
+    costs the narrow win on that section."""
     if wide:
         flat = np.concatenate([a.astype(np.int32) for _, a in named])
         return flat, tuple("i32" for _ in named), {
             name: 32 for name, _ in named
         }
     parts, encs, widths = [], [], {}
-    for name, arr in named:
-        kind = _SECTION_NARROW[name]
-        enc = (_narrow_ident(arr) if kind == "i16"
-               else _narrow_delta_ref(arr))
+    for i, (name, arr) in enumerate(named):
+        kind = force[i] if force is not None else _SECTION_NARROW[name]
+        enc = None
+        if kind != "hilo":
+            enc = (_narrow_ident(arr) if kind == "i16"
+                   else _narrow_delta_ref(arr))
+            if enc is None and force is not None:
+                raise ValueError(
+                    f"forced narrow encoding {kind!r} refused for "
+                    f"section {name!r}"
+                )
         if enc is not None:
             parts.append(enc)
             encs.append(kind)
@@ -792,13 +808,15 @@ def _chain_bundle_cut(rows_s, c_parent, f, d, clen, cl_q, posd,
 
 
 def stage(cols: Dict[str, np.ndarray],
-          put=None, wide: Optional[bool] = None) -> Optional[PackedPlan]:
+          put=None, wide: Optional[bool] = None,
+          _sections: Optional[list] = None) -> Optional[PackedPlan]:
     """Pack kernel columns into the single-transfer matrix (the
     tracer's ``pack`` span — one per staged union).
 
-    See :func:`_stage` for the layout contract."""
+    See :func:`_stage` for the layout contract (``_sections`` is the
+    mesh sharder's layout-only seam)."""
     with get_tracer().span("pack"):
-        return _stage(cols, put, wide)
+        return _stage(cols, put, wide, _sections=_sections)
 
 
 def _doc_column(cols, valid) -> Optional[np.ndarray]:
@@ -863,8 +881,17 @@ def _compose_doc_ids(cols, doc, client, oc, valid, live_origin):
 
 
 def _stage(cols: Dict[str, np.ndarray],
-           put=None, wide: Optional[bool] = None) -> Optional[PackedPlan]:
+           put=None, wide: Optional[bool] = None,
+           _sections: Optional[list] = None) -> Optional[PackedPlan]:
     """Pack kernel columns into the single-transfer matrix.
+
+    ``_sections`` (internal; the mesh sharder's seam): when a list is
+    passed, the layout work runs in full but the encode step is
+    SKIPPED — the named section arrays are appended to the list in
+    ``SECTION_NAMES`` order and the returned plan has
+    ``mat=None/encs=()``. The sharder pads every shard's sections to
+    common bucket sizes and encodes them with one shared encoding
+    tuple (:func:`_encode_sections` ``force=``).
 
     Returns None when the batch exceeds the packed path's bounds
     (callers fall back to the general kernels): >=2^25 distinct
@@ -1205,7 +1232,13 @@ def _stage(cols: Dict[str, np.ndarray],
         # section re-cut count as transfer savings
         record_staged_widths(w_all, shipped, (3 * kpad + 2 * B) * 4)
     else:
-        mat, encs, w_all = _encode_sections(g0 + g1 + g2, wide)
+        named = g0 + g1 + g2
+        if _sections is not None:
+            # layout-only: the sharder pads + encodes across shards
+            _sections.extend(named)
+            mat, encs, w_all = None, (), {}
+        else:
+            mat, encs, w_all = _encode_sections(named, wide)
         dev = ()
         # NOT recorded here: a matrix plan may never cross the link
         # (converge_host, make_repeat_dispatch) — the width/savings

@@ -50,10 +50,13 @@ def diff_mask(client: torch.Tensor, clock: torch.Tensor, valid: torch.Tensor,
     """True for items NOT covered by `sv` — the delta a peer needs
     (the syncer path, crdt.js:288). A client outside the vector's
     width is one the peer has never seen: watermark 0. The gather
-    clamps the client as the reference's does."""
-    c = sv.shape[0]
+    clamps the client as the reference's does. ``sv`` is one [C]
+    vector for every item, or one vector a row: [R, C] for [R, N]
+    items (the reference maps the [C] form over rows with ``vmap``)."""
+    c = sv.shape[-1]
     known = client < c
-    seen = sv[client.long().clamp(0, c - 1)]
+    idx = client.long().clamp(0, c - 1)
+    seen = sv[idx] if sv.dim() == 1 else torch.gather(sv, -1, idx)
     watermark = torch.where(known, seen, torch.zeros_like(seen))
     return valid & (clock >= watermark)
 

@@ -7,9 +7,14 @@ the state vectors: every replica's vector, the pairwise plan (the
 every replica already holds) and, per replica, only the rows ABOVE
 the floor, packed into a static ``budget``-sized buffer.
 ``needed_count`` reports the true deficit so a caller can loop rounds
-or raise the budget until it reaches zero. The ring step
-(``make_ring_delta_step``) needs a device per replica (ROADMAP.md
-queue A item 9).
+or raise the budget until it reaches zero.
+
+:func:`make_ring_delta_step` is the ``toPeer`` analogue (crdt.js:290)
+over a mesh (:mod:`crdt_tpu_torch.parallel.mesh`), one replica an
+entry: each entry learns its ring successor's state vector by a
+``ppermute``, selects exactly the rows that successor lacks, and a
+second ``ppermute`` ships them to it. R-1 rounds converge a ring the
+way repeated ``toPeer`` unicasts do.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from crdt_tpu_torch.ops import statevec
 from crdt_tpu_torch.ops.device import resolve_device
+from crdt_tpu_torch.parallel.mesh import Mesh, entries, ppermute
 
 COL_NAMES = (
     "client",
@@ -81,6 +87,58 @@ def make_delta_gossip_step(num_clients: int, budget: int, *, device):
         packed, n_needed = _pack_rows(cols, needed, budget)
         union = tuple(c.reshape(-1) for c in packed)
         return (svs, deficit, n_needed) + union
+
+    return step
+
+
+def make_ring_delta_step(mesh: Mesh, num_clients: int, budget: int):
+    """Point-to-point delta exchange (the ``toPeer`` analogue): every
+    replica ships its ring successor exactly the rows that successor
+    lacks, by :func:`~crdt_tpu_torch.parallel.mesh.ppermute` between
+    mesh entries. One replica an entry, as the reference requires.
+
+    Step input: nine lists (in :data:`COL_NAMES` order), each of one
+    [1, N] column tensor an entry, on the entry. Returns, gathered onto
+    the first entry in mesh order,
+
+    - ``sent_count`` [R] rows each replica shipped to its successor
+    - ``recv_*``     [R, budget] columns each replica received from its
+      predecessor
+    """
+    devs = entries(mesh)
+    nd = len(devs)
+    fwd = [(i, (i + 1) % nd) for i in range(nd)]
+    bwd = [(i, (i - 1) % nd) for i in range(nd)]
+
+    def step(*cols):
+        if len(cols) != len(COL_NAMES):
+            raise ValueError(f"expected {len(COL_NAMES)} columns")
+        for col in cols:
+            if len(col) != nd or any(
+                    c.device != dev for c, dev in zip(col, devs)):
+                raise ValueError(f"each column must hold one part on "
+                                 f"each of the {nd} mesh entries")
+        n = cols[0][0].shape[1]
+        if budget > n:
+            raise ValueError(f"budget={budget} exceeds the {n} rows a "
+                             "replica holds")
+        per = [tuple(col[k] for col in cols) for k in range(nd)]
+        sv_local = [statevec.build(p[0], p[1], p[8], num_clients)
+                    for p in per]
+        # learn the SUCCESSOR's vector: it travels backwards round the ring
+        succ_sv = ppermute(sv_local, bwd, mesh)
+        packed, sent = [], []
+        for p, sv in zip(per, succ_sv):
+            needed = statevec.diff_mask(p[0], p[1], p[8], sv)
+            rows, n_needed = _pack_rows(p, needed, budget)
+            packed.append(rows)
+            sent.append(n_needed)
+        # ship the packed rows forward to the successor
+        recv = [ppermute([rows[i] for rows in packed], fwd, mesh)
+                for i in range(len(COL_NAMES))]
+        dev0 = devs[0]
+        return (torch.cat([s.to(dev0) for s in sent]),) + tuple(
+            torch.cat([r.to(dev0) for r in col]) for col in recv)
 
     return step
 

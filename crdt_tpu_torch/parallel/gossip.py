@@ -1,8 +1,7 @@
-"""The full gossip + merge round, on one card.
+"""The gossip + merge rounds, on one device or over a mesh.
 
-The port's counterpart of ``crdt_tpu.parallel.gossip`` for one device.
-The reference shards the replica axis over a device mesh and
-all-gathers it; on one card the replica axis is a batch axis and the
+The port's counterpart of ``crdt_tpu.parallel.gossip``. On one device
+(:func:`make_gossip_step`) the replica axis is a batch axis and the
 all-gather is the identity, so the round is:
 
 - per-replica state vectors (a batched scatter-max) and their merge;
@@ -13,19 +12,53 @@ all-gather is the identity, so the round is:
 
 One packed int64 block comes in per operand and ONE flat int64 vector
 goes out, at the reference's static offsets (:func:`fleet_out_sizes`).
-The hierarchical, segment-sharded and packed-shard steps and the
-fault plan need several devices (ROADMAP.md queue A item 9).
+
+Over a mesh (:mod:`crdt_tpu_torch.parallel.mesh`, re-exported here
+under the reference's names) one process drives every entry, as the
+reference's one ``shard_map`` program does:
+
+- :func:`make_hierarchical_gossip_step` — the two-tier fan-in of a
+  (hosts, replicas) mesh: per-entry state vectors, then the replicas
+  axis and the hosts axis gathered in turn onto the first entry, where
+  the union converges once (``ds_mask`` through ``converge_maps``,
+  ``sv_deficit`` through ``statevec.missing``);
+- :func:`make_segment_sharded_step` — the work-divided round: each
+  entry converges only its segment shard (one ``ds_mask`` launch an
+  entry) and scans its block of the deficit rows;
+- :func:`make_packed_shard_step` — the sharded packed converge of
+  :mod:`crdt_tpu_torch.ops.shard` (one ``seg_argmax_scan`` and one
+  ``stream_scatter`` launch an entry) and its boundary exchange;
+- :class:`GossipFaultPlan` / :func:`mask_packed` — seeded drops and
+  partitions of fleet rounds.
 """
 
 from __future__ import annotations
 
+import zlib
+from contextlib import nullcontext
+from typing import Optional
+
 import numpy as np
 import torch
 
+from crdt_tpu_torch.obs.recorder import get_recorder
 from crdt_tpu_torch.ops import statevec
 from crdt_tpu_torch.ops.device import resolve_device
 from crdt_tpu_torch.ops.merge import converge_maps
+from crdt_tpu_torch.ops.packed import _converge_packed_body, _decode_sections
+from crdt_tpu_torch.ops.staging import _section_sizes
 from crdt_tpu_torch.ops.yata import converge_sequences
+from crdt_tpu_torch.parallel.mesh import (  # noqa: F401  (re-exports)
+    HOST_AXIS,
+    REPLICA_AXIS,
+    Mesh,
+    all_gather,
+    all_gather2,
+    broadcast,
+    entries,
+    make_mesh,
+    make_mesh2d,
+)
 
 COL_PACK_ORDER = (
     "client", "clock", "parent_is_root", "parent_a", "parent_b",
@@ -131,6 +164,279 @@ def make_gossip_step(num_segments: int, num_clients: int, *, device):
         ])
 
     return step
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current card for an entry's launches."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def _check_parts(parts, devs, what: str) -> None:
+    if len(parts) != len(devs):
+        raise ValueError(f"{what}: {len(parts)} parts for a mesh of "
+                         f"{len(devs)} entries")
+    for k, (p, dev) in enumerate(zip(parts, devs)):
+        if p.device != dev:
+            raise ValueError(f"{what}: entry {k} lies on {p.device}, "
+                             f"the mesh puts it on {dev}")
+
+
+def make_hierarchical_gossip_step(mesh: Mesh, num_segments: int,
+                                  num_clients: int):
+    """Two-tier gossip over a (hosts, replicas) mesh: the fan-in is a
+    gather over the replicas axis followed by one over the hosts axis
+    (:func:`~crdt_tpu_torch.parallel.mesh.all_gather2`) — the
+    reference's full-mesh swarm mapped onto a pod's fabric instead of
+    one flat collective. The output vector equals
+    :func:`make_gossip_step`'s on the same flattened columns.
+
+    Step inputs: one packed [9, r, N] int64 block an entry (the
+    entry's r = R / entries replicas, mesh order, on the entry) and
+    the packed [3, D] deletes on the first entry. Each entry builds its
+    replicas' state vectors; the union and the vectors gather onto the
+    first entry, which converges the union once: the output vector is
+    the one the reference replicates on every device."""
+    if len(mesh.axis_names) != 2:
+        raise ValueError("the two-tier step runs on a (hosts, replicas) "
+                         "mesh")
+    devs = entries(mesh)
+    dev0 = devs[0]
+
+    def step(parts, dels: torch.Tensor) -> torch.Tensor:
+        _check_parts(parts, devs, "hierarchical step")
+        if dels.device != dev0:
+            raise ValueError(f"the deletes must lie on {dev0}")
+        sv_parts = []
+        for part, dev in zip(parts, devs):
+            with _on(dev):
+                cols = _unpack_cols(part)
+                sv_parts.append(statevec.build(cols[0], cols[1], cols[8],
+                                               num_clients))
+        with _on(dev0):
+            svs = all_gather2(sv_parts, mesh).reshape(-1, num_clients)
+            global_sv = statevec.merge(svs)
+            deficit = statevec.missing(svs)
+            # [entries, 9, r, N] -> [9, R, N] in the flat row order
+            blk = all_gather2(parts, mesh)
+            blk = blk.transpose(0, 1).reshape(9, -1, blk.shape[-1])
+            union = [x.reshape(-1) for x in _unpack_cols(blk)]
+            d_client, d_start, d_end = dels[0], dels[1], dels[2]
+            map_order, _, winners, winner_visible, _, _ = converge_maps(
+                *union, d_client, d_start, d_end,
+                num_segments=num_segments,
+            )
+            seq_order, seq_seg, seq_rank, seq_len = converge_sequences(
+                *union, num_segments=num_segments,
+            )
+            return torch.cat([
+                x.reshape(-1).to(torch.int64)
+                for x in (svs, global_sv, deficit, winners, winner_visible,
+                          seq_order, seq_seg, seq_rank, seq_len, map_order)
+            ])
+
+    return step
+
+
+def make_segment_sharded_step(mesh: Mesh, num_segments: int,
+                              n_replicas: int):
+    """Work-DIVIDED gossip round: the union arrives pre-partitioned by
+    SEGMENT (one entry owns every row of each (parent, key) chain and
+    each sequence), so each entry converges only its shard — one
+    ``converge_maps`` (one ``ds_mask`` launch) and one
+    ``converge_sequences`` an entry. Contrast
+    :func:`make_hierarchical_gossip_step`, which gathers the union and
+    converges it whole (``crdt_tpu_torch.models.fleet.shard_trace``
+    builds the partition).
+
+    The per-replica own-op state vectors arrive as an INPUT (the host
+    computes them while partitioning); the entries divide the rows of
+    the O(R^2 C) pairwise deficit, each scanning its own replica block
+    against every vector (:func:`statevec.exact_missing_rows`).
+
+    Inputs: one packed [9, N_d] int64 block an entry (on the entry),
+    the [R, C] ``svs`` and the packed [3, D] deletes on the first entry
+    (broadcast to every entry). Output: ONE int64 vector on the first
+    entry, the entries' [X] blocks in mesh order (X from
+    :func:`segment_out_sizes`), so the host reshapes the fetch to
+    [nd, X] and slices it."""
+    devs = entries(mesh)
+    nd = len(devs)
+    blk = -(-n_replicas // nd)  # deficit rows an entry
+
+    def step(parts, svs: torch.Tensor, dels: torch.Tensor) -> torch.Tensor:
+        _check_parts(parts, devs, "segment step")
+        if svs.shape[0] != n_replicas:
+            raise ValueError(f"svs has {svs.shape[0]} rows, the step was "
+                             f"built for {n_replicas} replicas")
+        svs_on = broadcast(svs, mesh)
+        dels_on = broadcast(dels, mesh)
+        outs = []
+        for d, (part, dev) in enumerate(zip(parts, devs)):
+            with _on(dev):
+                flat = [x.reshape(-1) for x in _unpack_cols(part)]
+                dl = dels_on[d]
+                map_order, _, winners, winner_visible, _, _ = converge_maps(
+                    *flat, dl[0], dl[1], dl[2], num_segments=num_segments,
+                )
+                seq_order, seq_seg, seq_rank, seq_len = converge_sequences(
+                    *flat, num_segments=num_segments,
+                )
+                sv = svs_on[d]
+                my_rows = sv[d * blk:(d + 1) * blk]
+                if my_rows.shape[0] < blk:  # the zero-padded tail block
+                    my_rows = torch.cat([my_rows, sv.new_zeros(
+                        (blk - my_rows.shape[0], sv.shape[1]))])
+                deficit_blk = statevec.exact_missing_rows(my_rows, sv)
+                outs.append(torch.cat([
+                    x.reshape(-1).to(torch.int64)
+                    for x in (deficit_blk, winners, winner_visible,
+                              seq_order, seq_seg, seq_rank, seq_len,
+                              map_order)
+                ]))
+        return all_gather(outs, devs[0]).reshape(-1)
+
+    return step
+
+
+def make_packed_shard_step(mesh: Mesh, *, num_segments: int,
+                           seq_bucket: int, map_bucket: int,
+                           rank_rounds: int, map_rounds: int,
+                           encs: tuple, sv_len: int, sv_mode: str):
+    """The sharded converge of :mod:`crdt_tpu_torch.ops.shard` over a
+    K-entry mesh: entry k widens ITS row of the staged [K, L] section
+    block and runs the fused converge
+    (:func:`crdt_tpu_torch.ops.packed._converge_packed_body` — one
+    ``seg_argmax_scan`` and one ``stream_scatter`` launch) on its own
+    rows, with nothing exchanged inside the converge: segments never
+    cross shards.
+
+    The only traffic between entries is the BOUNDARY EXCHANGE: each
+    shard's narrow wire row (its partial state vector; ``sv_mode``
+    ``'i16'`` one identity int16 stretch, ``'hilo'`` two exact int16
+    stretches below 2^31, ``'wide'`` int64) gathered onto the first
+    entry, widened in int64 before any shift, and max-merged into the
+    swarm state vector.
+
+    Step inputs: one block row and one wire row an entry, each on its
+    entry, as lists (the step drops its reference to each block row
+    once the widening prelude has read it: torch has no donation).
+    Returns (the K per-shard int32 results [S+B], each on its entry;
+    the merged [sv_len] int64 vector on the first entry)."""
+    devs = entries(mesh)
+    sizes = _section_sizes(num_segments, seq_bucket, map_bucket)
+
+    def step(blocks: list, wires) -> tuple:
+        _check_parts(blocks, devs, "shard step")
+        _check_parts(wires, devs, "shard step wire")
+        outs = []
+        for k, dev in enumerate(devs):
+            blk, blocks[k] = blocks[k], None
+            with _on(dev), torch.profiler.record_function(
+                    "crdt.shard.converge"):
+                secs = _decode_sections(blk, sizes, encs)
+                del blk
+                outs.append(_converge_packed_body(
+                    *secs, num_segments=num_segments,
+                    seq_bucket=seq_bucket, map_bucket=map_bucket,
+                    rank_rounds=rank_rounds, map_rounds=map_rounds,
+                ))
+        with _on(devs[0]), torch.profiler.record_function(
+                "crdt.shard.boundary_exchange"):
+            w = all_gather(wires, devs[0])
+            if sv_mode == "hilo":
+                hi = w[:, :sv_len].to(torch.int64)
+                lo = w[:, sv_len:2 * sv_len].to(torch.int64)
+                svs = (hi << 16) | ((lo + 0x8000) & 0xFFFF)
+            else:  # 'i16' identity / 'wide' int64: plain widen
+                svs = w[:, :sv_len].to(torch.int64)
+            gsv = svs.amax(dim=0)
+        return outs, gsv
+
+    return step
+
+
+def segment_out_sizes(blk: int, R: int, N_d: int, S: int):
+    """Static (name, size) layout of ONE entry's block in the
+    segment-sharded step's packed output."""
+    return (
+        ("deficit", blk * R),
+        ("winners", S),
+        ("winner_visible", S),
+        ("seq_order", N_d),
+        ("seq_seg", N_d),
+        ("seq_rank", N_d),
+        ("seq_len", S),
+        ("map_order", N_d),
+    )
+
+
+class GossipFaultPlan:
+    """Deterministic fault plan for FLEET gossip rounds — the mesh
+    analogue of the router-seam fault fabric
+    (:mod:`crdt_tpu_torch.net.faults`). A replica "dropped" in a round
+    has its contribution withheld from the gather (its valid column
+    zeroed — what a lost propagate broadcast looks like to everyone
+    else); a partition splits the replica axis into groups that gossip
+    separately. Because the converge is a merge over op unions, a later
+    heal round over the full columns lands on EXACTLY the fault-free
+    output.
+
+    Decisions hash ``(seed, round, replica)`` — no RNG state, so any
+    round replays in isolation, and equal the reference's for the same
+    seed."""
+
+    def __init__(self, seed: int = 0, *, drop: float = 0.0,
+                 partition_every: int = 0, groups: int = 2):
+        self.seed = seed
+        self.drop = drop
+        self.partition_every = partition_every
+        self.groups = groups
+
+    def _h(self, *key) -> float:
+        return zlib.crc32(repr((self.seed,) + key).encode()) / 2**32
+
+    def delivered_mask(self, round_idx: int, n_replicas: int) -> np.ndarray:
+        """[R] bool: False = this replica's batch is lost this round."""
+        mask = np.array(
+            [self._h("drop", round_idx, r) >= self.drop
+             for r in range(n_replicas)],
+            dtype=bool,
+        )
+        rec = get_recorder()
+        if rec.enabled and not mask.all():
+            rec.record(
+                "gossip.drop", round=round_idx,
+                replicas=np.flatnonzero(~mask).tolist(),
+            )
+        return mask
+
+    def partition_masks(self, round_idx: int,
+                        n_replicas: int) -> Optional[list]:
+        """List of [R] bool group masks when this round is partitioned
+        (round index divisible by ``partition_every``), else None."""
+        if not self.partition_every or round_idx % self.partition_every:
+            return None
+        assign = np.array(
+            [int(self._h("part", round_idx, r) * self.groups)
+             for r in range(n_replicas)]
+        )
+        rec = get_recorder()
+        if rec.enabled:
+            rec.record(
+                "gossip.partition", round=round_idx,
+                groups=assign.tolist(),
+            )
+        return [assign == g for g in range(self.groups)]
+
+
+def mask_packed(packed: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """Withhold replicas' contributions from one packed [9, R, N]
+    gossip input: rows where ``keep`` is False get their valid column
+    (pack index 8) zeroed. The original block is untouched — a heal
+    round re-presents it in full."""
+    out = np.array(packed, copy=True)
+    out[8, ~np.asarray(keep, dtype=bool), :] = 0
+    return out
 
 
 def synth_columns(

@@ -239,9 +239,20 @@ class TestOutsideTheSlice:
 
     @pytest.mark.parametrize("shard", ["segments", "sharded"])
     def test_multi_device_mappings_raise(self, shard):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fleet.fleet_replay(traces.build_trace(3, 4), device="cpu",
-                               shard=shard)
+        # the multi-device mappings (ROADMAP.md queue A item 9) on a
+        # 4-entry CPU mesh: the reference's cache and snapshot on the
+        # same trace. The name is the one these mappings had while they
+        # raised, kept so the test's history stays one line.
+        from crdt_tpu_torch.parallel.gossip import make_mesh
+
+        for blobs in (traces.build_trace(3, 4),
+                      traces.build_conflict_trace(8, 24)):
+            got = fleet.fleet_replay(blobs, mesh=make_mesh(4, device="cpu"),
+                                     shard=shard)
+            want = ref_fleet.fleet_replay(
+                blobs, mesh=ref_gossip.make_mesh(4), shard=shard)
+            _assert_same_replay(got, want)
+            assert got.path == want.path
 
     @pytest.mark.parametrize("route", [
         pytest.param("auto", id="auto-item 5"),

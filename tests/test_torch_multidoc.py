@@ -325,10 +325,33 @@ def test_multidoc_sentinel_over_the_port_server():
         set_tracer(Tracer(enabled=False))
 
 
-def test_shards_above_one_raise_naming_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MultiDocServer(shards=2, device="cpu")
-    MultiDocServer(shards=1, device="cpu")
+def test_shards_above_one_raise_naming_item_9(monkeypatch):
+    # shards above one (ROADMAP.md queue A item 9) serve a cold tick
+    # through the sharded route, digests equal to one device's. The
+    # name is the one this test had while the route raised, kept so the
+    # test's history stays one line.
+    from crdt_tpu_torch.ops import shard as shard_ops
+
+    monkeypatch.setenv(shard_ops.MIN_ROWS_ENV, "1")
+    docs = {f"d{i}": doc_blobs(i, K=12) for i in range(4)}
+    got = {}
+    for shards in (2, 1):
+        srv = MultiDocServer(shards=shards, device="cpu")
+        routes = []
+        enqueue = srv._dispatch_async
+
+        def spy(comb, _enqueue=enqueue, _routes=routes):
+            out = _enqueue(comb)
+            _routes.append(out[0])
+            return out
+
+        srv._dispatch_async = spy
+        for d, blobs in docs.items():
+            srv.submit_many(d, blobs)
+        srv.tick()
+        assert routes == (["shard"] if shards == 2 else ["packed"])
+        got[shards] = {d: srv.digest(d) for d in docs}
+    assert got[2] == got[1]
 
 
 def test_no_card_raises_at_construction(monkeypatch):
