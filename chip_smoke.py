@@ -122,6 +122,18 @@ JAX or of the reference package. Phases, each fatal on failure:
      sharded; the ring delta on 8 entries equal to the CPU; a
      ``GossipFaultPlan``'s drop and partition rounds, healed to the
      fault-free round;
+  15. the multi-process pod (:func:`pod_phase`), also before the
+     timing: this script again (``--pod-child``) as the ranks of
+     ``gloo`` groups on the one card, each running the unchanged entry
+     points on the same inputs, uploading and launching only its own
+     mesh entries: ``replay_trace`` of 1000 x 1600 sharded over 4 ranks
+     (K = 4, 8), the stream route over 2, ``fleet_replay`` sharded and
+     segment-sharded over 4 and two-tier over 2 x 2, the ring delta
+     and ``MultiDocServer(shards=4)``, every rank equal to the single
+     controller's result; a ``nccl`` pair on one card refused before
+     any collective, a one-process ``nccl`` group's collectives equal
+     to the mesh's copies and, with two or more cards, a ``nccl``
+     group one rank a card;
   9. time each kernel on the inputs each card run gave it (CUDA events
      around a CUDA-graph replay of the calls; a kernel wrapper that
      cannot be captured fails the run), against its bound, its plain
@@ -147,9 +159,17 @@ cold batch of a fleet node and a destination's first pooled flush after
 it adopts a migrated doc (``"path": "fleet"``), and phase 14's: a shard
 of the 4-way sharded converge (``"path": "shard"``), an entry of the
 segment step (``"path": "segments"``) and the two-tier step's union
-(``"path": "hierarchical"``); the last line is
+(``"path": "hierarchical"``), and phase 15's call sites in each rank of
+the pod (``"path": "pod"``, ``"rank"``, ``"site"``); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result line
 when there is no card or the package is not beside this script.
+
+    python3 chip_smoke.py --rehearse-udp JOINS LEGS DEVICE
+
+runs phase 12's late join JOINS times and its fleet leg LEGS times on
+``DEVICE`` (``cuda`` or ``cpu``), without the kernel checks, and prints
+one JSON line: each run's outcome, seconds, re-probes and re-dials (the
+repairs of its stalls, ROADMAP §C). Exits non-zero if any run failed.
 """
 
 from __future__ import annotations
@@ -342,6 +362,10 @@ def main() -> int:
         return udp_child(sys.argv[2])
     if sys.argv[1:2] == ["--fleet-child"] and len(sys.argv) == 3:
         return fleet_child(sys.argv[2])
+    if sys.argv[1:2] == ["--pod-child"] and len(sys.argv) == 3:
+        return pod_child(sys.argv[2])
+    if sys.argv[1:2] == ["--rehearse-udp"] and len(sys.argv) == 5:
+        return rehearse_udp(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not (ROOT / "crdt_tpu_torch" / "csrc").is_dir():
         return fail(f"crdt_tpu_torch/ not found beside {__file__}")
     sys.path.insert(0, str(ROOT))
@@ -710,6 +734,12 @@ def main() -> int:
     # timing, which it feeds)
     udp = udp_phase(torch, kernels, packed_mod, deleteset, blobs_of,
                     device_results, hold_kernel)
+    print(f"phase 12: B's late join took {udp.pop('join_reprobes')} "
+          "re-probe(s) (each one the stall of a synced joiner that lost "
+          "A's answers, ROADMAP §C) and the joins re-dialed "
+          f"{json.dumps(udp.pop('join_redials'), sort_keys=True)} (each a "
+          "one-shot join message lost to the schedule, ROADMAP §C)",
+          flush=True)
     done("12 sync over UDP")
 
     # phase 14's tenants: phase 10's cold tenants and their digests
@@ -733,8 +763,18 @@ def main() -> int:
          "fleet": route_results[(scale, "fleet")],
          "stream": route_results[(scale, "stream")]},
         mt_cold, same, hold_kernel)
-    del mt_cold
     done("14 multi-device mesh")
+
+    # ---- 15. the multi-process pod on the card (before the timing, which
+    # it feeds)
+    pod_rows = pod_phase(
+        torch, kernels, blobs_of[scale],
+        {"device": device_results[scale],
+         "fleet": route_results[(scale, "fleet")],
+         "stream": route_results[(scale, "stream")]},
+        mt_cold, hold_kernel, max_err)
+    del mt_cold
+    done("15 multi-process pod")
 
     # ---- 9. timing at the main path's shapes ---------------------------
     for label, seen in card_inputs.items():
@@ -837,7 +877,8 @@ def main() -> int:
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {smi}")
     print(json.dumps({"kernels": scale_rows + inc_rows + rep_rows + mt_rows
-                      + res_rows + udp_rows + fleet_rows + mesh_rows}),
+                      + res_rows + udp_rows + fleet_rows + mesh_rows
+                      + pod_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2392,6 +2433,11 @@ UDP_ROUTER = {"relay_after_s": 0.25, "dial_retry_s": 0.1,
 # transport bursts every fragment and repairs the loss by RTO rounds),
 # or the probe would fetch the whole answer again mid-transfer
 UDP_JOIN_PROBE_RETRY_S = 30.0
+# how long B's join may wait on an answer before a synced B that has
+# applied nothing probes again (a join's answer lands in under 8 s),
+# and the most re-probes that stall may take
+UDP_REPROBE_S = 20.0
+UDP_REPROBES_MAX = 2
 # the replicas' client ids, clear of the trace's 1..1000
 UDP_A, UDP_B, UDP_CANON = 5001, 5002, 5003
 # bench.py's fleet-trace children: ops each, value bytes an op
@@ -2446,14 +2492,34 @@ def pump_repair(routers, cond, repair, *, timeout_s: float) -> int:
             repair()
 
 
-def redial(routers, boot):
-    """A repair: every router that hears no one yet dials the
-    rendezvous ``boot`` again (the bootstrap hello is a one-shot the
-    schedule can eat; bench.py's children re-dial too)."""
+def redial(routers, boot, topic=None, counts=None):
+    """A repair: dial again where a one-shot message of a join was lost
+    to the schedule (ROADMAP §C). Every router that hears no one yet,
+    or has not proven ``boot``'s key, dials the rendezvous ``boot``
+    (the bootstrap hello and the liveness challenge that makes ``boot``
+    an introducer are each sent once, and only a router that proved it
+    keeps its topic announcement fresh there; bench.py's children
+    re-dial too). With ``topic``, every router also dials each direct
+    peer whose announcement of ``topic`` it lacks (a re-dial makes both
+    ends announce again). ``counts`` tallies the dials by kind."""
+    counts = {} if counts is None else counts
+
+    def dial(r, addr, kind: str) -> None:
+        r.add_peer(*addr)
+        counts[kind] = counts.get(kind, 0) + 1
+
     def run():
         for r in routers:
-            if r is not boot and not r.peers:
-                r.add_peer(*boot.addr)
+            if r is boot:
+                continue
+            if not r.peers or boot.public_key not in r._rendezvous_pks:
+                dial(r, boot.addr, "rendezvous")
+            if topic is None:
+                continue
+            for pk, p in list(r._peers.items()):
+                if pk != boot.public_key and p.direct \
+                        and topic not in p.topics:
+                    dial(r, p.addr, "peer")
     return run
 
 
@@ -2564,9 +2630,14 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
                                  " device rounds")
         if json.dumps(dict(a.c), sort_keys=True) != want_cache:
             raise AssertionError(f"{label}: A's c != the cold device route")
+        # A has joined R when R lists A on the topic and A has proven
+        # R's key: from then on A keeps its announcement fresh at R,
+        # and R introduces A to whoever announces the topic next
+        redials: dict = {}
         t0 = time.perf_counter()
-        pump_repair([boot, ra], lambda: boot.public_key in ra.peers,
-                    redial([ra], boot), timeout_s=30.0)
+        pump_repair([boot, ra], lambda: ra.public_key in boot.peers_on("doc")
+                    and boot.public_key in ra._rendezvous_pks,
+                    redial([ra], boot, "doc", redials), timeout_s=30.0)
         secs["A joins R"] = time.perf_counter() - t0
 
         # ---- B joins through R alone and gets A's state over UDP
@@ -2604,6 +2675,9 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
                 b = ypear_crdt(rb, topic="doc", client_id=UDP_B,
                                merge_mode="device", device=device,
                                probe_retry_s=UDP_JOIN_PROBE_RETRY_S)
+                # R and A stand still while B is built: R must not take
+                # A for gone (past A's announce TTL) when B announces
+                secs["B built"] = time.perf_counter() - t_join
                 b_apply = b.doc.apply_updates
 
                 def timed_apply(datas, origin="remote"):
@@ -2614,10 +2688,53 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
                                     "bytes": sum(map(len, datas))})
 
                 b.doc.apply_updates = timed_apply
-                pump_repair(list(routers.values()),
-                            lambda: b.synced
-                            and b.state_vector() == a.state_vector(),
-                            redial([ra, rb], boot), timeout_s=120.0)
+                rejoin = redial([ra, rb], boot, "doc", redials)
+                reprobes: list = []
+
+                def join_repair():
+                    rejoin()
+                    # B built before it heard a peer takes itself for
+                    # the solo first node and is synced with nothing
+                    # (the reference's rule); when A joins, A's state
+                    # reaches B only as its answers to the two
+                    # peer_joined probes, and if the schedule drops
+                    # them nothing retries a synced replica's probe
+                    # (ROADMAP §C, pinned by tests/test_torch_udp.py::
+                    # test_synced_joiner_that_loses_its_answers_stalls_
+                    # until_probed). In just that stall (A answered, B
+                    # synced and applied nothing, long after a join's
+                    # answer would have landed) probe again, count it,
+                    # and fail on a third: that is not this stall
+                    now = time.perf_counter()
+                    if b.synced and answers and not applies and now - max(
+                            [t_join] + reprobes) > UDP_REPROBE_S:
+                        if len(reprobes) == UDP_REPROBES_MAX:
+                            raise AssertionError(
+                                f"{label}: B's join lost A's answers "
+                                f"after {len(reprobes)} re-probes")
+                        reprobes.append(now)
+                        log(f"{label}: B synced with nothing and A's "
+                            f"{len(answers)} answer(s) lost: re-probe "
+                            f"{len(reprobes)} at "
+                            f"{now - t_join:.3f} s")
+                        b.probe()
+
+                try:
+                    pump_repair(list(routers.values()),
+                                lambda: b.synced
+                                and b.state_vector() == a.state_vector(),
+                                join_repair, timeout_s=120.0)
+                except TimeoutError as e:
+                    # what the next look at a stalled join needs, in the
+                    # error itself (it reaches standard error)
+                    raise TimeoutError(
+                        f"{label}: B's join stalled: synced {b.synced}, "
+                        f"A's answers {len(answers)}, B's applies "
+                        f"{len(applies)}, re-dials {redials}; R lists "
+                        f"{len(boot.peers_on('doc'))} on the topic, A "
+                        f"{len(ra.peers_on('doc'))}, B "
+                        f"{len(rb.peers_on('doc'))}; transport "
+                        f"{json.dumps(udp_endpoints(eps, routers))}") from e
             sync()
         finally:
             device_apply._rebuild_kernel = rebuild
@@ -2698,9 +2815,12 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
         a_apply = a.doc.apply_updates
 
         def profiled_apply(datas, origin="remote"):
-            if profiled:
+            # under duplication and delay a batch A applies may hold
+            # nothing new: profile each apply, into a directory of its
+            # own, until one dispatches
+            if profiled and profiled[-1]:
                 return a_apply(datas, origin)
-            with torch_profile(prof_dir):
+            with torch_profile(f"{prof_dir}/{len(profiled)}"):
                 r0 = packed_mod.device_dispatch_count
                 a_apply(datas, origin)
                 sync()
@@ -2715,8 +2835,9 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
         finally:
             del a.doc.apply_updates
             replay.device_min_rows = None
-        traces = sorted(Path(prof_dir).glob("*.pt.trace.json"))
-        if profiled != [1] or len(traces) != 1:
+        traces = sorted(Path(prof_dir, str(len(profiled) - 1)).glob(
+            "*.pt.trace.json"))
+        if not profiled or profiled[-1] != 1 or len(traces) != 1:
             raise AssertionError(f"{label}: profiled rounds {profiled}, "
                                  f"traces {traces}")
         events = json.loads(traces[0].read_text())["traceEvents"]
@@ -2747,7 +2868,7 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
             r.close()
         set_tracer(Tracer(enabled=False))
     if not on_card:
-        return {}
+        return {"join_reprobes": len(reprobes), "join_redials": redials}
     for args in a_seen["stream_scatter"]:
         hold_kernel("stream_scatter", *args)
     for args in b_seen["ds_mask"]:
@@ -2758,7 +2879,8 @@ def udp_late_join(torch, kernels, packed_mod, deleteset, blobs, n_ops: int,
     log(f"{label}: stream_scatter (B, n_out) {scatter} and ds_mask (N, D) "
         f"{mask} == plain on the run's own inputs")
     return {"stream_scatter": a_seen["stream_scatter"],
-            "ds_mask": b_seen["ds_mask"]}
+            "ds_mask": b_seen["ds_mask"], "join_reprobes": len(reprobes),
+            "join_redials": redials}
 
 
 def udp_nat_relay(torch, kernels, device: str = "cuda") -> None:
@@ -2894,6 +3016,13 @@ def udp_fleet(torch, device: str = "cuda") -> None:
                                      f"{[p.poll() for p in procs]}, logs "
                                      f"{tails}")
             t_done = time.perf_counter()
+            # every child is done: they stop handling traffic, so no
+            # frame is recorded between one child's scrape and the next
+            # (a receive scraped after its origin's scrape would not
+            # pair); they go on serving their obs surfaces
+            with open(os.path.join(outdir, "quiet"), "w") as f:
+                f.write("done")
+            time.sleep(0.2)
             col = FleetCollector(events_limit=16384)
             for idx in range(n_procs):
                 col.add_proc(f"p{idx}", f"http://127.0.0.1:{obs_ports[idx]}")
@@ -2961,7 +3090,52 @@ def udp_fleet(torch, device: str = "cuda") -> None:
         f"{json.dumps([d['transport'] for d in dones])}")
     failed = [k for k, v in checks.items() if not v]
     if failed:
-        raise AssertionError(f"{label}: acceptance failed: {failed}")
+        raise AssertionError(f"{label}: acceptance failed: {failed}; "
+                             "first incomplete paths "
+                             f"{json.dumps(paths.get('incomplete'))}")
+
+
+def rehearse_udp(joins: int, legs: int, device: str) -> int:
+    """``--rehearse-udp``: phase 12's late join ``joins`` times and its
+    fleet leg ``legs`` times on ``device``; one JSON line of outcomes."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        return fail("--rehearse-udp cuda: no CUDA card")
+    from crdt_tpu_torch.models import replay as rp
+    from crdt_tpu_torch.models import traces
+    from crdt_tpu_torch.net import transport
+    from crdt_tpu_torch.ops import deleteset, kernels
+    from crdt_tpu_torch.ops import packed as packed_mod
+
+    transport.random_bytes(1)
+    blobs = traces.build_trace(1000, 100, seed=0)
+    want = rp.replay_trace(blobs, device=device)
+    runs = []
+    for kind in ["join"] * joins + ["leg"] * legs:
+        t0 = time.perf_counter()
+        run = {"kind": kind}
+        try:
+            if kind == "join":
+                out = udp_late_join(
+                    torch, kernels, packed_mod, deleteset, blobs,
+                    want.n_ops, json.dumps(want.cache, sort_keys=True),
+                    lambda *args: None, device)
+                run.update(reprobes=out["join_reprobes"],
+                           redials=out["join_redials"])
+            else:
+                udp_fleet(torch, device)
+            run["ok"] = True
+        except Exception as e:  # a rehearsal counts each failure
+            traceback.print_exc()
+            run.update(ok=False, error=f"{type(e).__name__}: {e}"[:2000])
+        run["s"] = time.perf_counter() - t0
+        runs.append(run)
+    print(json.dumps({"device": device, "runs": runs}), flush=True)
+    return 0 if all(r["ok"] for r in runs) else 1
 
 
 def udp_child(arg: str) -> int:
@@ -3039,8 +3213,10 @@ def udp_child(arg: str) -> int:
             router.poll()
             time.sleep(0.002)
 
-    # join: both other peers on the topic, synced; the bootstrap hello
-    # is re-dialed until the router hears anyone
+    # join: both other peers on the topic, synced; each second a
+    # one-shot join message lost to the schedule is dialed again (see
+    # :func:`redial`): the rendezvous until the router has proven its
+    # key, and each direct peer whose topic announcement is missing
     deadline = time.monotonic() + 60.0
     next_redial = time.monotonic() + 1.0
     while len(router.peers_on("fleet")) < 2 or not rep.synced:
@@ -3050,8 +3226,12 @@ def udp_child(arg: str) -> int:
                   file=sys.stderr)
             return 3
         router.poll()
-        if idx and not router.peers and time.monotonic() >= next_redial:
-            router.add_peer("127.0.0.1", int(ports[0]))
+        if idx and time.monotonic() >= next_redial:
+            if not router.peers or not router._rendezvous_pks:
+                router.add_peer("127.0.0.1", int(ports[0]))
+            for p in list(router._peers.values()):
+                if p.direct and "fleet" not in p.topics:
+                    router.add_peer(*p.addr)
             next_redial = time.monotonic() + 1.0
         time.sleep(0.002)
 
@@ -3103,11 +3283,15 @@ def udp_child(arg: str) -> int:
         json.dump(done, f)
     os.replace(done_path + ".tmp", done_path)
 
-    # stay scrapeable until the parent's stop file, then exit clean
+    # stay scrapeable until the parent's stop file, then exit clean;
+    # keep relaying for the children still converging until the parent's
+    # quiet file (every child done)
     stop = os.path.join(outdir, "stop")
+    quiet = os.path.join(outdir, "quiet")
     deadline = time.monotonic() + 90.0
     while not os.path.exists(stop) and time.monotonic() < deadline:
-        router.poll()
+        if not os.path.exists(quiet):
+            router.poll()
         time.sleep(0.01)
     obs.stop()
     router.close()
@@ -4531,6 +4715,620 @@ def multidevice_phase(torch, rp, streaming, fleet, kernels, packed_mod,
         f"== fault-free field by field; {time.perf_counter() - t0:.3f} s")
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the multi-process pod on the card
+# ---------------------------------------------------------------------------
+
+# the pod's groups, each (processes, backend, steps), run in this order;
+# "nccl_cards" runs only where two or more cards are visible, one rank a
+# card, and its steps are "a" and "c" at K = one entry a rank
+POD_GROUPS = {
+    "A": (4, "gloo", ("replay4", "replay8", "fleet_sharded",
+                      "fleet_segments", "ring", "multidoc")),
+    "B": (2, "gloo", ("stream", "hierarchical")),
+    "nccl_refused": (2, "nccl", ("nccl_refused",)),
+    "nccl_one": (1, "nccl", ("nccl_collectives",)),
+}
+POD_CARD_STEPS = ("replayW", "fleet_sharded", "fleet_segments", "ring")
+# a group's collective timeout (a rank that dies fails the others in
+# this long) and its deadline from spawn to the last rank's exit
+POD_TIMEOUT_S = 60
+POD_DEADLINE_S = 300
+# the tracer spans and counters a rank reports for each step
+POD_SPANS = PHASES["device"] + (
+    "fleet.load", "fleet.step", "fleet.seg_step", "mesh.agree",
+    "mesh.all_gather", "mesh.all_gather2", "mesh.broadcast",
+    "mesh.ppermute")
+POD_COUNTERS = ("shard.dispatches", "mesh.collectives", "mesh.staged_bytes",
+                'xfer.h2d_bytes_by{path="shard.mat"}',
+                'xfer.h2d_bytes_by{path="shard.wire"}',
+                'xfer.h2d_bytes_by{path="fleet.cols"}')
+# the steps whose first kernel inputs the parent times, each rank's
+POD_TIMED = {"replay4": "sharded converge K=4, a rank's shard",
+             "fleet_segments": "segment round, a rank's entry",
+             "hierarchical": "two-tier round on 2 x 2, a rank's union"}
+
+
+def _sha(data) -> str:
+    import hashlib
+
+    if not isinstance(data, bytes):
+        data = json.dumps(data, sort_keys=True).encode()
+    return hashlib.sha256(data).hexdigest()
+
+
+def pod_child(arg: str) -> int:
+    """One rank of phase 15 (``python3 chip_smoke.py --pod-child CFG``):
+    join the group, run the group's steps in order (each the entry point
+    a user calls, on the same inputs as every other rank), and write one
+    JSON record: each step's digests, spans, counters, kernel calls and
+    launches, and the largest kernel-vs-plain difference on the step's
+    captured inputs; or the error that stopped the rank."""
+    import datetime
+    import os
+    import pickle
+    import traceback
+
+    t_main = time.time()
+    cfg = json.loads(arg)
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(cfg["rank"]), int(cfg["world"])
+    backend, device = cfg["backend"], cfg["device"]
+    work = Path(cfg["workdir"])
+    rec: dict = {"rank": rank, "start_s": t_main - cfg["spawned_at"],
+                 "steps": {}}
+    try:
+        from crdt_tpu_torch.models import fleet, streaming
+        from crdt_tpu_torch.models import replay as rp
+        from crdt_tpu_torch.models.multidoc import MultiDocServer
+        from crdt_tpu_torch.obs import (TickTimeline, Tracer, set_timeline,
+                                        set_tracer)
+        from crdt_tpu_torch.ops import deleteset, kernels, packed, statevec
+        from crdt_tpu_torch.ops import shard as shard_ops
+        from crdt_tpu_torch.parallel import delta, gossip
+        from crdt_tpu_torch.parallel import mesh as mesh_ops
+
+        rec["import_s"] = time.time() - t_main
+        torch.set_num_threads(2)
+        if device == "cuda":
+            # the rank's own card (where there are several, a card a
+            # rank, as the pod mesh places its entries)
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            backend, init_method=f"file://{work / ('init_' + cfg['group'])}",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+        rec["group_init_s"] = time.perf_counter() - t0
+        on_card = device == "cuda"
+        if on_card:
+            t0 = time.perf_counter()
+            torch.ones(1, device="cuda")
+            torch.cuda.synchronize()
+            rec["cuda_init_s"] = time.perf_counter() - t0
+        inputs = pickle.loads((work / "inputs.pkl").read_bytes())
+        scale = inputs["scale"]
+        pk_sites = ((packed, "seg_argmax_scan"), (packed, "stream_scatter"))
+        fl_sites = ((deleteset, "ds_mask"), (statevec, "sv_deficit"))
+
+        def sync() -> None:
+            if on_card:
+                torch.cuda.synchronize()
+
+        def counted(step: str, run, sites) -> tuple:
+            """``run()`` with the launch counts zeroed just before and
+            read just after, the tracer on and the kernels' inputs
+            captured; each input then held against the plain version,
+            the first of each kernel saved for the parent's timing."""
+            tracer = set_tracer(Tracer(enabled=True))
+            seen: dict = {}
+            sync()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with capture_kernel_inputs(seen, *sites):
+                out = run()
+            sync()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            set_tracer(Tracer(enabled=False))
+            rep = tracer.report()
+            max_err: dict = {}
+            for name, calls in seen.items():
+                kern = getattr(kernels, name)
+                plain = getattr(kernels, name + "_plain")
+                for args in calls:
+                    got, want = kern(*args), plain(*args)
+                    if got.shape != want.shape or got.dtype != want.dtype:
+                        raise AssertionError(f"{step}: {name} shape/dtype "
+                                             "!= plain")
+                    err = int((got.long() - want.long()).abs().max()) \
+                        if got.numel() else 0
+                    max_err[name] = max(max_err.get(name, 0), err)
+            if step in POD_TIMED and seen:
+                torch.save({name: [tuple(a.cpu() if hasattr(a, "cpu")
+                                         else a for a in calls[0])]
+                            for name, calls in seen.items()},
+                           work / f"kin_{step}_rank{rank}.pt")
+            return out, {
+                "wall": wall,
+                "spans": {n: rep["spans"][n]["total_s"] for n in POD_SPANS
+                          if n in rep["spans"]},
+                "counters": {n: rep["counters"].get(n, 0)
+                             for n in POD_COUNTERS},
+                "calls": {n: len(c) for n, c in seen.items()},
+                "launches": {n: launches[n] for n in REPLACES},
+                "max_err": max_err,
+            }
+
+        def replay(step: str, K: int) -> dict:
+            with env_set(shard_ops.SHARD_ENV, str(K)):
+                res, r = counted(step, lambda: rp.replay_trace(
+                    scale, route="device", device=device), pk_sites)
+            return dict(r, cache=_sha(res.cache), snapshot=_sha(res.snapshot),
+                        n_ops=res.n_ops, path=res.path, K=K)
+
+        def fleet_step(step: str, mesh, mode: str, sites) -> dict:
+            res, r = counted(step, lambda: fleet.fleet_replay(
+                scale, mesh=mesh, shard=mode), sites)
+            return dict(r, cache=_sha(res.cache), snapshot=_sha(res.snapshot),
+                        n_ops=res.n_ops, path=res.path,
+                        mesh=list(mesh.devices.shape))
+
+        def stream(step: str) -> dict:
+            phases: dict = {}
+            tl = set_timeline(TickTimeline(enabled=True))
+            with env_set(shard_ops.SHARD_ENV, str(world)):
+                res, r = counted(step, lambda: streaming.stream_replay(
+                    scale, device=device, phases=phases), pk_sites)
+            set_timeline(TickTimeline(enabled=False))
+            (tick,) = tl.records()
+            return dict(r, cache=_sha(res.cache), snapshot=_sha(res.snapshot),
+                        n_ops=res.n_ops, path=res.path,
+                        stream_shards=len(tick["dispatches"]),
+                        phases=phases)
+
+        def ring(step: str) -> dict:
+            rcols = delta.synth_resident_columns(RING_REPLICAS, 96, 8,
+                                                 seed=0)
+            out: dict = {"wall": {}}
+            # a nccl group moves no CPU tensor: its ring is held against
+            # the single controller's by the parent alone
+            devs = (device, "cpu") if backend == "gloo" else (device,)
+            for budget in (4, 16):
+                got = {}
+                for dev in dict.fromkeys(devs):
+                    mesh = gossip.make_mesh(RING_REPLICAS, device=dev)
+                    local = dict(mesh_ops.local_entries(mesh))
+                    parts = [[torch.from_numpy(np.ascontiguousarray(
+                        rcols[c][k:k + 1])).to(local[k])
+                        if k in local else None
+                        for k in range(RING_REPLICAS)]
+                        for c in delta.COL_NAMES]
+                    sync()
+                    t0 = time.perf_counter()
+                    vals = delta.make_ring_delta_step(
+                        mesh, RING_REPLICAS + 2, budget)(*parts)
+                    got[dev] = [v.cpu().numpy() for v in vals]
+                    out["wall"][f"{dev} {budget}"] = \
+                        time.perf_counter() - t0
+                a, b = got[device], got[devs[-1]]
+                if any(x.dtype != y.dtype or x.shape != y.shape
+                       or not (x == y).all() for x, y in zip(a, b)):
+                    raise AssertionError(f"ring delta budget {budget}: "
+                                         f"{device} != cpu")
+                out[str(budget)] = _sha(b"".join(x.tobytes() for x in a))
+            return out
+
+        def multidoc(step: str) -> dict:
+            docs = inputs["mt_docs"]
+            srv = MultiDocServer(shards=MESH_K, device=device)
+            for d, b in docs.items():
+                srv.submit_many(d, b)
+            rep_t, r = counted(step, srv.tick, pk_sites)
+            return dict(r, digests={str(d): srv.digest(d) for d in docs},
+                        dispatches=rep_t.dispatches,
+                        fallback=rep_t.fallback_docs)
+
+        def nccl_refused(step: str) -> dict:
+            # no collective: make_mesh refuses before any
+            try:
+                gossip.make_mesh(world, device=device)
+            except RuntimeError as exc:
+                return {"refused": str(exc)}
+            return {"refused": None}
+
+        def nccl_collectives(step: str) -> dict:
+            # the pod's own collective code under nccl, on CUDA tensors,
+            # against the single-controller mesh's copies
+            dev = torch.device("cuda", torch.cuda.current_device())
+            K = 4
+            single = gossip.make_mesh(K, device=device)
+            flat = np.empty(K, dtype=object)
+            flat[:] = [dev] * K
+            pod = mesh_ops.Mesh(flat, (mesh_ops.REPLICA_AXIS,),
+                                mesh_ops.Pod(0, 1, "nccl", K))
+            grid = pod._replace(devices=flat.reshape(2, 2),
+                                axis_names=(mesh_ops.HOST_AXIS,
+                                            mesh_ops.REPLICA_AXIS))
+            grid1 = gossip.make_mesh2d(2, 2, device=device)
+            checked = []
+            for dtype in (torch.int64, torch.int32, torch.int16,
+                          torch.bool):
+                parts = [(torch.arange(6, device=dev).reshape(2, 3) * 10
+                          + k).to(dtype) for k in range(K)]
+                ring_ = [(i, (i + 1) % K) for i in range(K)]
+                pairs = (
+                    ("all_gather", mesh_ops.all_gather(parts, dev, pod),
+                     mesh_ops.all_gather(parts, dev, single)),
+                    ("all_gather2", mesh_ops.all_gather2(parts, grid),
+                     mesh_ops.all_gather2(parts, grid1)),
+                    ("broadcast", torch.stack(mesh_ops.broadcast(
+                        parts[2], pod)), torch.stack(mesh_ops.broadcast(
+                            parts[2], single))),
+                    ("ppermute", torch.stack(mesh_ops.ppermute(
+                        parts, ring_, pod)), torch.stack(mesh_ops.ppermute(
+                            parts, ring_, single))),
+                )
+                for name, got, want in pairs:
+                    if got.dtype != want.dtype or not torch.equal(got, want):
+                        raise AssertionError(f"nccl {name} {dtype} != the "
+                                             "mesh's copies")
+                    checked.append(f"{name} {dtype}")
+            return {"checked": checked, "backend": dist.get_backend()}
+
+        steps = {
+            "replay4": lambda s: replay(s, 4),
+            "replay8": lambda s: replay(s, 8),
+            "replayW": lambda s: replay(s, world),
+            "fleet_sharded": lambda s: fleet_step(
+                s, gossip.make_mesh(world, device=device), "sharded",
+                pk_sites),
+            "fleet_segments": lambda s: fleet_step(
+                s, gossip.make_mesh(world, device=device), "segments",
+                fl_sites),
+            "hierarchical": lambda s: fleet_step(
+                s, gossip.make_mesh2d(2, 2, device=device), "replicas",
+                fl_sites),
+            "stream": stream,
+            "ring": ring,
+            "multidoc": multidoc,
+            "nccl_refused": nccl_refused,
+            "nccl_collectives": nccl_collectives,
+        }
+        for step in cfg["steps"]:
+            t0 = time.perf_counter()
+            rec["steps"][step] = steps[step](step)
+            rec["steps"][step]["step_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+    except Exception:  # the record carries it to the parent
+        rec["error"] = traceback.format_exc()
+    path = work / f"{cfg['group']}_rank{rank}.json"
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(rec, default=str))
+    os.replace(tmp, path)
+    return 0 if "error" not in rec else 1
+
+
+def run_pod_group(group: str, world: int, backend: str, steps, work: Path,
+                  device: str) -> list:
+    """Start one group's ranks (this script with ``--pod-child``), each
+    logging to its own file; returns their (process, log) pairs."""
+    import subprocess
+
+    import os
+
+    env = dict(os.environ)
+    if group == "nccl_refused":
+        env["CUDA_VISIBLE_DEVICES"] = "0"  # two ranks on one card
+    procs = []
+    for rank in range(world):
+        cfg = {"group": group, "rank": rank, "world": world,
+               "backend": backend, "steps": list(steps), "device": device,
+               "workdir": str(work), "spawned_at": time.time()}
+        out = open(work / f"{group}_rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--pod-child",
+             json.dumps(cfg)], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT, env=env), out))
+    return procs
+
+
+def wait_pod_groups(groups: dict, work: Path) -> dict:
+    """Join every rank of ``groups`` (name -> processes) under one
+    deadline, kill what is left, and read each rank's record; a rank
+    that wrote none gets its log's tail as its error."""
+    deadline = time.monotonic() + POD_DEADLINE_S
+    for procs in groups.values():
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass  # killed below
+    out = {}
+    for group, procs in groups.items():
+        recs = []
+        for rank, (p, log_f) in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+            path = work / f"{group}_rank{rank}.json"
+            if path.exists():
+                recs.append(json.loads(path.read_text()))
+            else:
+                tail = Path(log_f.name).read_text()[-2000:]
+                recs.append({"rank": rank, "error": f"no record (rc "
+                             f"{p.returncode}): {tail}"})
+        out[group] = recs
+    return out
+
+
+def pod_phase(torch, kernels, scale, results: dict, mt_cold,
+              hold_kernel, max_err: dict, device: str = "cuda") -> list:
+    """Phase 15: the multi-process pod on the card. Every rank is this
+    script again (``--pod-child``) on ``cuda:0``, joined to a ``gloo``
+    group through a ``file://`` init in a temp directory, running the
+    unchanged entry points on the same inputs; it uploads and launches
+    only its own mesh entries, and each collective reaches every rank
+    through the group (host-staged under ``gloo``).
+
+    (a) ``replay_trace(route="device")`` of ``scale`` under
+        ``CRDT_TPU_SHARDS`` = 4 and 8 on 4 ranks (1, then 2 entries a
+        rank): one ``shard.dispatches`` and K/4 launches of each converge
+        kernel in every rank;
+    (b) the stream route with its stream shards sharded over 2 ranks;
+    (c) ``fleet_replay`` sharded and segment-sharded on 4 ranks, and the
+        two-tier round on ``make_mesh2d(2, 2)`` over 2 ranks;
+    (d) the ring delta on 4 ranks x 2 entries, budgets 4 and 16, card
+        == CPU field by field;
+    (e) ``MultiDocServer(shards=4)`` on phase 10's cold tenants, 4 ranks;
+    (f) NCCL: a one-process ``nccl`` group drives the pod's collective
+        code on CUDA tensors against the mesh's copies; a ``nccl`` pod
+        of 2 ranks on one card is refused before any collective; with
+        two or more cards, (a) and (c) again under ``nccl``, one rank a
+        card.
+
+    Every rank's caches, snapshots, digests and vectors must equal every
+    other rank's and the single-controller results (phases 4-6, 10 and
+    14): ``results`` holds phase 4's ``"device"``, phase 5's ``"fleet"``
+    and phase 6's ``"stream"`` results of ``scale``, ``mt_cold`` phase
+    10's cold tenants and digests. Every captured kernel input equals
+    the plain version. Returns the kernels line's per-rank rows (the
+    parent times each rank's captured inputs, alone on the card)."""
+    import pickle
+    import tempfile
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    want = {
+        "device": (_sha(results["device"].cache),
+                   _sha(results["device"].snapshot)),
+        "fleet": (_sha(results["fleet"].cache),
+                  _sha(results["fleet"].snapshot)),
+        "stream": (_sha(results["stream"].cache),
+                   _sha(results["stream"].snapshot)),
+    }
+    docs, digests = mt_cold
+    n_cards = torch.cuda.device_count() if on_card else 0
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        (work / "inputs.pkl").write_bytes(pickle.dumps(
+            {"scale": scale, "mt_docs": docs}))
+        log(f"pod: inputs written in {time.perf_counter() - t0:.3f} s "
+            f"({(work / 'inputs.pkl').stat().st_size} bytes)")
+        t0 = time.perf_counter()
+        w, b, s = POD_GROUPS["A"]
+        recs = wait_pod_groups({"A": run_pod_group("A", w, b, s, work,
+                                                   device)}, work)
+        log(f"pod group A (4 ranks, gloo): {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        later = [g for g in ("B", "nccl_refused", "nccl_one")
+                 if on_card or POD_GROUPS[g][1] == "gloo"]
+        if n_cards >= 2:
+            later.append("nccl_cards")
+        started = {}
+        for g in later:
+            w, b, s = (POD_GROUPS[g] if g != "nccl_cards"
+                       else (min(n_cards, 4), "nccl", POD_CARD_STEPS))
+            started[g] = run_pod_group(g, w, b, s, work, device)
+        recs.update(wait_pod_groups(started, work))
+        log(f"pod groups {later}: {time.perf_counter() - t0:.3f} s "
+            "(concurrently)")
+        if not on_card:
+            log("pod (f): not run: the nccl groups need the card")
+        elif n_cards < 2:
+            log("pod (f): (a) and (c) under nccl, one rank a card: not "
+                f"run: {n_cards} card visible (NCCL refuses two ranks on "
+                "one card)")
+        bad = {g: [(r["rank"], r["error"]) for r in rs if "error" in r]
+               for g, rs in recs.items()}
+        bad = {g: v for g, v in bad.items() if v}
+        if bad:
+            raise AssertionError(f"pod: ranks failed: {bad}")
+        saved = {}
+        for step in POD_TIMED:
+            for rank in range(4):
+                path = work / f"kin_{step}_rank{rank}.pt"
+                if path.exists():
+                    saved[step, rank] = torch.load(path)
+
+    def per_rank(g: str, step: str) -> list:
+        return [r["steps"][step] for r in recs[g]]
+
+    def check(g: str, step: str, want_pair, calls: dict) -> None:
+        for rank, r in enumerate(per_rank(g, step)):
+            if (r["cache"], r["snapshot"]) != want_pair:
+                raise AssertionError(f"pod {g} {step}: rank {rank}'s result "
+                                     "!= the single controller's")
+            if r["calls"] != {k: v for k, v in calls.items() if v} or \
+                    r["launches"] != dict(
+                        dict.fromkeys(REPLACES, 0),
+                        **(calls if on_card else {})):
+                raise AssertionError(f"pod {g} {step} rank {rank}: calls "
+                                     f"{r['calls']}, launches "
+                                     f"{r['launches']}, want {calls}")
+            if any(r["max_err"].values()):
+                raise AssertionError(f"pod {g} {step} rank {rank}: kernel "
+                                     f"!= plain {r['max_err']}")
+
+    def report(g: str, step: str) -> None:
+        for rank, r in enumerate(per_rank(g, step)):
+            rr = recs[g][rank]
+            sp, c = r["spans"], r["counters"]
+            launched = {k: v for k, v in r["launches"].items() if v}
+            coll = sum(v for k, v in sp.items() if k.startswith("mesh."))
+            up = sum(v for k, v in c.items() if k.startswith("xfer."))
+            log(f"pod {g} {step} rank {rank}/{len(recs[g])}: process start "
+                f"{rr['start_s']:.3f} s (imports {rr['import_s']:.3f}), "
+                f"group init {rr['group_init_s']:.3f} s, cuda "
+                f"{rr.get('cuda_init_s', 0):.3f} s; step {r['wall']:.3f} s: "
+                f"stage {sp.get('pack', 0):.3f}, upload "
+                f"{up} bytes, dispatch {sp.get('converge.dispatch', 0):.3f}"
+                f", collectives {coll:.3f} s ({c['mesh.collectives']}, "
+                f"host-staged {c['mesh.staged_bytes']} bytes), fetch "
+                f"{sp.get('converge.fetch', 0):.3f}, assembly "
+                f"{sp.get('gather', 0) + sp.get('materialize', 0):.3f}; "
+                f"spans {json.dumps({k: round(v, 4) for k, v in sp.items()})}"
+                f"; launches {json.dumps(launched)}")
+
+    # (a) the sharded cold replay, every rank == phase 4
+    for step in ("replay4", "replay8"):
+        K = per_rank("A", step)[0]["K"]
+        check("A", step, want["device"],
+              {"seg_argmax_scan": K // 4, "stream_scatter": K // 4})
+        for rank, r in enumerate(per_rank("A", step)):
+            if r["counters"]["shard.dispatches"] != 1 or \
+                    r["path"] != "device":
+                raise AssertionError(f"pod A {step} rank {rank}: "
+                                     f"dispatches {r['counters']}")
+        report("A", step)
+        log(f"pod (a) replay_trace, CRDT_TPU_SHARDS={K}, 4 ranks: every "
+            "rank == phase 4 byte for byte, one shard.dispatches and "
+            f"{K // 4} launch(es) of each converge kernel a rank")
+    # (b) the stream route, its shards sharded over 2 ranks
+    st = per_rank("B", "stream")
+    n_stream = st[0]["stream_shards"]
+    check("B", "stream", want["stream"],
+          {"seg_argmax_scan": n_stream, "stream_scatter": n_stream})
+    for rank, r in enumerate(st):
+        if r["counters"]["shard.dispatches"] != n_stream or n_stream < 2 \
+                or r["path"] != "stream":
+            raise AssertionError(f"pod B stream rank {rank}: {r['path']}, "
+                                 f"{r['counters']}, {n_stream} shards")
+    report("B", "stream")
+    log(f"pod (b) stream route, {n_stream} stream shards each sharded over "
+        f"2 ranks: every rank == phase 6; phases (s) rank 0 "
+        f"{json.dumps(st[0]['phases'])}")
+    # (c) fleet_replay in three mappings, every rank == phase 5
+    for g, step, calls in (
+            ("A", "fleet_sharded", {"seg_argmax_scan": 1,
+                                    "stream_scatter": 1}),
+            ("A", "fleet_segments", {"ds_mask": 1}),
+            ("B", "hierarchical", {"ds_mask": 1, "sv_deficit": 1})):
+        check(g, step, want["fleet"], calls)
+        report(g, step)
+        log(f"pod (c) fleet_replay {step} mesh "
+            f"{per_rank(g, step)[0]['mesh']} over {len(recs[g])} ranks: "
+            f"every rank == phase 5; calls a rank {calls}")
+    # (d) the ring delta: every rank card == CPU, and == one controller
+    ring = per_rank("A", "ring")
+    from crdt_tpu_torch.parallel import delta, gossip
+
+    rcols = delta.synth_resident_columns(RING_REPLICAS, 96, 8, seed=0)
+    m = gossip.make_mesh(RING_REPLICAS, device="cpu")
+    for budget in (4, 16):
+        parts = [[torch.from_numpy(rcols[c][i:i + 1].copy())
+                  for i in range(RING_REPLICAS)] for c in delta.COL_NAMES]
+        one = delta.make_ring_delta_step(m, RING_REPLICAS + 2, budget)(
+            *parts)
+        want_ring = _sha(b"".join(v.numpy().tobytes() for v in one))
+        rings = ring + (per_rank("nccl_cards", "ring")
+                        if "nccl_cards" in recs else [])
+        if any(r[str(budget)] != want_ring for r in rings):
+            raise AssertionError(f"pod (d) ring budget {budget}: a rank != "
+                                 "the single controller")
+    log("pod (d) ring delta, 4 ranks x 2 entries, budgets 4 and 16: every "
+        "rank card == CPU field by field == one controller; walls rank 0 "
+        f"{json.dumps({k: round(v, 4) for k, v in ring[0]['wall'].items()})}")
+    # (e) MultiDocServer(shards=4), every digest == phase 10's
+    want_dig = {str(d): v for d, v in digests.items()}
+    for rank, r in enumerate(per_rank("A", "multidoc")):
+        if r["digests"] != want_dig or r["fallback"]:
+            raise AssertionError(f"pod (e) rank {rank}: digests != phase "
+                                 "10's")
+        n_sh = r["counters"]["shard.dispatches"]
+        # a sharded batch launches once in each rank (one entry a rank),
+        # a packed one in every rank
+        each = n_sh + (r["dispatches"] - n_sh)
+        want_l = dict.fromkeys(REPLACES, 0)
+        if on_card:
+            want_l.update(seg_argmax_scan=each, stream_scatter=each)
+        if n_sh < 1 or r["launches"] != want_l or any(
+                r["max_err"].values()):
+            raise AssertionError(f"pod (e) rank {rank}: {n_sh} sharded of "
+                                 f"{r['dispatches']} batches, launches "
+                                 f"{r['launches']}")
+    report("A", "multidoc")
+    log(f"pod (e) MultiDocServer(shards={MESH_K}), 4 ranks: {len(docs)} "
+        "cold tenants, every digest == phase 10's in every rank; "
+        f"{per_rank('A', 'multidoc')[0]['counters']['shard.dispatches']} "
+        "sharded batch(es) a tick")
+    # (f) NCCL
+    if on_card:
+        for r in per_rank("nccl_refused", "nccl_refused"):
+            if not r["refused"] or "gloo" not in r["refused"]:
+                raise AssertionError(f"pod (f): a nccl pod of 2 ranks on one "
+                                     f"card was not refused: {r}")
+        one = per_rank("nccl_one", "nccl_collectives")[0]
+        log("pod (f) nccl: a 2-rank nccl group seeing one card "
+            "refused before any collective ("
+            f"{per_rank('nccl_refused', 'nccl_refused')[0]['refused'][:80]}"
+            f"...); a one-process {one['backend']} group: the pod's "
+            f"collectives on CUDA tensors == the mesh's copies "
+            f"({len(one['checked'])} checks)")
+    if "nccl_cards" in recs:
+        W = len(recs["nccl_cards"])
+        check("nccl_cards", "replayW", want["device"],
+              {"seg_argmax_scan": 1, "stream_scatter": 1})
+        check("nccl_cards", "fleet_sharded", want["fleet"],
+              {"seg_argmax_scan": 1, "stream_scatter": 1})
+        check("nccl_cards", "fleet_segments", want["fleet"], {"ds_mask": 1})
+        for step in POD_CARD_STEPS[:-1]:
+            report("nccl_cards", step)
+        log(f"pod (f) nccl, {W} ranks one a card: (a) and (c) == phases 4 "
+            "and 5 in every rank, the ring delta (its pairs across ranks "
+            "sent and received) == one controller")
+
+    # each rank's call sites, timed here alone on the card
+    rows = []
+    if on_card:
+        smi = smi_line()
+        for (step, rank), seen in sorted(saved.items()):
+            g = "B" if step == "hierarchical" else "A"
+            r = recs[g][rank]["steps"][step]
+            seen = {name: [tuple(a.to("cuda") if hasattr(a, "to") else a
+                                 for a in args) for args in calls]
+                    for name, calls in seen.items()}
+            for name, calls in seen.items():
+                for args in calls:
+                    hold_kernel(name, *args)
+            got = kernel_rows(torch, kernels, seen, r["launches"], max_err)
+            for row in got:
+                row["path"] = "pod"
+                row["rank"] = rank
+                row["site"] = POD_TIMED[step]
+            log(f"kernel times (pod, rank {rank}, {POD_TIMED[step]}; card "
+                f"{smi}): " + json.dumps(got))
+            rows += got
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def sync_warnings(torch, run) -> dict:

@@ -135,7 +135,7 @@ class FaultyKv:
         kind = self.schedule.decide(n)
         rec = get_recorder()
         if kind and rec.enabled:
-            rec.record("fault.disk", kind=kind, write=n, ops=len(ops))
+            rec.record("fault.disk", fault=kind, write=n, ops=len(ops))
         if kind == "crash":
             self._apply_ops(ops[: self.schedule.crash_at[1]])
             self.stats["crashed"] += 1
@@ -203,7 +203,7 @@ class FaultyFs:
         kind = self.schedule.decide(n)
         rec = get_recorder()
         if kind and rec.enabled:
-            rec.record("fault.fs", kind=kind, op=n, verb=verb)
+            rec.record("fault.fs", fault=kind, op=n, verb=verb)
         if kind == "crash":
             # crash BEFORE the op applies (torn covers the mid-write
             # states); the fs is dead from here on

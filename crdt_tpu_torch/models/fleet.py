@@ -52,7 +52,7 @@ from crdt_tpu_torch.parallel.gossip import (
     synth_columns,
     unpack_fleet_out,
 )
-from crdt_tpu_torch.parallel.mesh import mesh_for
+from crdt_tpu_torch.parallel.mesh import home, local_entries, mesh_for
 
 
 class FleetStep(NamedTuple):
@@ -81,7 +81,9 @@ class ReplicaFleet:
     one-entry mesh runs :func:`make_gossip_step` on that device, a
     (hosts, replicas) mesh the two-tier
     :func:`make_hierarchical_gossip_step`, and a 1D mesh of several
-    entries the same step as one host of them."""
+    entries the same step as one host of them (on a pod of processes,
+    one host row a process). On a pod each process uploads only its
+    own entries' replicas and every process returns the same step."""
 
     def __init__(
         self,
@@ -102,7 +104,7 @@ class ReplicaFleet:
                 f"n_replicas={n_replicas} must divide over {len(devs)} "
                 "mesh entries"
             )
-        self.device = resolve_device(devs[0])
+        self.device = resolve_device(home(self.mesh))
         self.n_replicas = n_replicas
         self.ops_per_replica = ops_per_replica
         self.num_clients = num_clients or n_replicas + 2
@@ -113,9 +115,12 @@ class ReplicaFleet:
         if len(self.mesh.axis_names) == 2 or len(devs) > 1:
             grid = self.mesh
             if len(grid.axis_names) == 1:
-                grid = Mesh(grid.devices.reshape(1, -1),
-                            (HOST_AXIS, grid.axis_names[0]))
-            self._entries = devs
+                # one host row, or on a pod one row a process
+                rows = grid.pod.world if grid.pod is not None else 1
+                grid = grid._replace(
+                    devices=grid.devices.reshape(rows, -1),
+                    axis_names=(HOST_AXIS, grid.axis_names[0]))
+            self._entries = dict(local_entries(self.mesh))
             self._step = make_hierarchical_gossip_step(
                 grid, self.num_segments, self.num_clients
             )
@@ -159,11 +164,14 @@ class ReplicaFleet:
                                   label="fleet.cols")
             else:
                 # each entry's replicas onto the entry, in mesh order
-                r = self.n_replicas // len(self._entries)
+                # (on a pod, this process's entries only)
+                nd = self.mesh.devices.size
+                r = self.n_replicas // nd
                 blk_on = [
-                    xfer_put(blk[:, k * r:(k + 1) * r], device=dev,
-                             label="fleet.cols")
-                    for k, dev in enumerate(self._entries)
+                    xfer_put(blk[:, k * r:(k + 1) * r],
+                             device=self._entries[k], label="fleet.cols")
+                    if k in self._entries else None
+                    for k in range(nd)
                 ]
             out = self._step(
                 blk_on,
@@ -611,14 +619,14 @@ class SegmentedFleet:
     ):
         self.mesh = mesh if mesh is not None else mesh_for(device,
                                                            n_devices)
-        self._entries = entries(self.mesh)
-        nd = len(self._entries)
+        self._entries = dict(local_entries(self.mesh))
+        nd = self.mesh.devices.size
         if sharded.n_devices != nd:
             raise ValueError(
                 f"trace sharded for {sharded.n_devices} devices, "
                 f"mesh has {nd}"
             )
-        self.device = resolve_device(self._entries[0])
+        self.device = resolve_device(home(self.mesh))
         self.num_clients = sharded.num_clients
         self.num_segments = sharded.num_segments
         self.n_replicas = sharded.n_replicas
@@ -637,7 +645,7 @@ class SegmentedFleet:
         # was built with: a larger segment bucket would overflow the
         # segment table, and a replica or mesh mismatch would unpack the
         # output vector at wrong offsets
-        nd_mesh = len(self._entries)
+        nd_mesh = self.mesh.devices.size
         if (
             sharded.n_devices != nd_mesh
             or sharded.n_replicas != self.n_replicas
@@ -658,8 +666,10 @@ class SegmentedFleet:
         with tracer.span("fleet.seg_step"):
             packed = pack_cols(sharded.cols)  # [9, nd, N_d]
             parts = [
-                xfer_put(packed[:, d], device=dev, label="fleet.cols")
-                for d, dev in enumerate(self._entries)
+                xfer_put(packed[:, d], device=self._entries[d],
+                         label="fleet.cols")
+                if d in self._entries else None
+                for d in range(nd)
             ]
             out = self._step(
                 parts,
@@ -755,7 +765,7 @@ def fleet_replay(
     if mesh is None:
         mesh = mesh_for(device, n_devices)
     nd = mesh.devices.size
-    dev = resolve_device(entries(mesh)[0])
+    dev = resolve_device(home(mesh))
     tracer = get_tracer()
     auto = shard == "auto"
     if auto:

@@ -13,7 +13,11 @@ server already converged — cost a delta, not a cold replay.
 ``shards=`` (above 1) sends a big enough cold batch down the sharded
 route (:mod:`crdt_tpu_torch.ops.shard`): whole docs partitioned over
 the entries of a mesh of ``device``'s type, one launch sequence an
-entry, per-doc outputs unchanged.
+entry, per-doc outputs unchanged. On a pod of processes (a
+``torch.distributed`` group) every process runs a server on the same
+tenants and ticks, and a sharded cold batch spans the pod: each process
+converges its own entries' docs and every server ends the tick with
+the same digests.
 
 The cold engine is the round-14 staging tentpole: doc-id is a
 first-class segment column in :mod:`crdt_tpu_torch.ops.packed` (client ids

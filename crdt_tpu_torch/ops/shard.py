@@ -37,7 +37,14 @@ Route selection: ``CRDT_TPU_SHARDS`` (unset = one shard a visible device
 of the converge's type: one card gives 1, the route off; ``0``/``1``
 disables) and ``CRDT_TPU_SHARD_MIN_ROWS`` (default 2^15). An explicit
 count above the visible devices places the shards round-robin
-(:func:`crdt_tpu_torch.parallel.mesh.make_mesh`). The one-shot replay,
+(:func:`crdt_tpu_torch.parallel.mesh.make_mesh`).
+
+On a pod of processes (a ``torch.distributed`` group) every process
+stages the whole union alike, agrees a digest of its plan with the
+others, uploads only its own entries' rows of the block and the wire,
+launches only their converges, and receives every shard's result and
+wire through the pod's all-gathers: each process assembles the same
+result and runs the same audit. The one-shot replay,
 the streaming executor's stream shards, the multi-tenant server's cold
 batches and the fleet replay take this route through
 :func:`active_for`.
@@ -49,6 +56,7 @@ Evidence: the ``shard.dispatches`` / ``shard.boundary_bytes`` /
 from __future__ import annotations
 
 import os
+import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -74,15 +82,16 @@ MIN_ROWS_DEFAULT = 1 << 15
 
 def _visible_count(device) -> int:
     kind = torch.device(device).type
-    if kind == "cuda":
-        return torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return 1
+    if kind == "cuda" and not torch.cuda.is_available():
+        return 0
+    return mesh_ops.default_size(device)
 
 
 def shard_count(n_shards: Optional[int] = None, *, device="cuda") -> int:
     """Resolved shard count: explicit arg, else ``CRDT_TPU_SHARDS``,
     else one shard a visible device of ``device``'s type (one card, or
-    the CPU, gives 1). 0/1 means the sharded route is off."""
+    the CPU, gives 1; on a pod of processes, one a device of every
+    process). 0/1 means the sharded route is off."""
     if n_shards is not None:
         return max(0, int(n_shards))
     raw = os.environ.get(SHARD_ENV, "")
@@ -563,12 +572,27 @@ def stage(cols, n_shards: Optional[int] = None, *,
 
 class ShardHandle(NamedTuple):
     """An enqueued sharded converge: the plan, the per-shard results
-    gathered onto the mesh's first entry, the merged state vector there,
-    and (on the card) the CUDA event recorded after the gather."""
+    gathered onto the mesh's first entry (on a pod, this process's),
+    the merged state vector there, and (on the card) the CUDA event
+    recorded after the gather."""
     plan: ShardPlan
     out: torch.Tensor
     gsv: torch.Tensor
     event: Optional[torch.cuda.Event]
+
+
+def _plan_digest(splan: ShardPlan) -> int:
+    """A 32-bit digest of everything a pod process uploads or assembles
+    from: the block, the wire, the host vectors, the row maps and the
+    static shapes."""
+    h = 0
+    for arr in (splan.block, splan.wire, splan.sv_host, splan.sv_clients,
+                *splan.row_maps):
+        h = zlib.crc32(np.ascontiguousarray(arr).view(np.uint8), h)
+    meta = (splan.encs, splan.num_segments, splan.seq_bucket,
+            splan.map_bucket, splan.rank_rounds, splan.map_rounds,
+            splan.sv_mode, splan.block.shape, splan.wire.shape)
+    return zlib.crc32(repr(meta).encode(), h)
 
 
 def converge_async(splan: ShardPlan, *, device="cuda",
@@ -578,15 +602,18 @@ def converge_async(splan: ShardPlan, *, device="cuda",
     ``device``'s type): one accounted upload of each shard's row of the
     block and wire onto its entry, the per-entry launch sequences, the
     boundary exchange and the gather of the results onto the first
-    entry. Nothing waits on a device; :func:`converge_fetch` is the
-    one sync."""
+    entry. On a pod the processes first agree the plan's digest (a
+    process that staged another plan raises), and each uploads and
+    launches only its own entries. On one controller nothing waits on a
+    device; :func:`converge_fetch` is the one sync."""
     K = splan.block.shape[0]
     if mesh is None:
         mesh = mesh_ops.make_mesh(K, device=device)
-    devs = mesh_ops.entries(mesh)
-    if len(devs) != K:
+    if mesh.devices.size != K:
         raise ValueError(f"a {K}-shard plan needs a {K}-entry mesh, "
-                         f"got {len(devs)}")
+                         f"got {mesh.devices.size}")
+    local = mesh_ops.local_entries(mesh)
+    dev0 = mesh_ops.home(mesh)
     step = make_packed_shard_step(
         mesh,
         num_segments=splan.num_segments,
@@ -599,21 +626,28 @@ def converge_async(splan: ShardPlan, *, device="cuda",
         sv_mode=splan.sv_mode,
     )
     tracer = get_tracer()
+    if mesh_ops.is_pod(mesh):
+        # before the first upload: every process must hold this plan
+        mesh_ops.agree(mesh, _plan_digest(splan))
     with tracer.span("converge.dispatch"), \
             torch.profiler.record_function("crdt.shard.dispatch"):
         record_staged_widths(
             splan.widths, splan.block.nbytes, splan.wide_bytes
         )
-        blocks = [xfer_put(splan.block[k], device=devs[k],
-                           label="shard.mat") for k in range(K)]
-        wires = [xfer_put(splan.wire[k], device=devs[k],
-                          label="shard.wire") for k in range(K)]
+        blocks: list = [None] * K
+        wires: list = [None] * K
+        for k, dev in local:
+            blocks[k] = xfer_put(splan.block[k], device=dev,
+                                 label="shard.mat")
+        for k, dev in local:
+            wires[k] = xfer_put(splan.wire[k], device=dev,
+                                label="shard.wire")
         outs, gsv = step(blocks, wires)
-        out = mesh_ops.all_gather(outs, devs[0])
+        out = mesh_ops.all_gather(outs, dev0, mesh)
         event = None
-        if devs[0].type == "cuda":
+        if dev0.type == "cuda":
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(devs[0]))
+            event.record(torch.cuda.current_stream(dev0))
     if tracer.enabled:
         tracer.count("shard.dispatches")
         tracer.gauge("shard.shards", K)

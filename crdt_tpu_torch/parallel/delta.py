@@ -10,11 +10,11 @@ the floor, packed into a static ``budget``-sized buffer.
 or raise the budget until it reaches zero.
 
 :func:`make_ring_delta_step` is the ``toPeer`` analogue (crdt.js:290)
-over a mesh (:mod:`crdt_tpu_torch.parallel.mesh`), one replica an
-entry: each entry learns its ring successor's state vector by a
-``ppermute``, selects exactly the rows that successor lacks, and a
-second ``ppermute`` ships them to it. R-1 rounds converge a ring the
-way repeated ``toPeer`` unicasts do.
+over a mesh (:mod:`crdt_tpu_torch.parallel.mesh`: one process, or a
+pod of processes), one replica an entry: each entry learns its ring
+successor's state vector by a ``ppermute``, selects exactly the rows
+that successor lacks, and a second ``ppermute`` ships them to it. R-1
+rounds converge a ring the way repeated ``toPeer`` unicasts do.
 """
 
 from __future__ import annotations
@@ -24,7 +24,13 @@ import torch
 
 from crdt_tpu_torch.ops import statevec
 from crdt_tpu_torch.ops.device import resolve_device
-from crdt_tpu_torch.parallel.mesh import Mesh, entries, ppermute
+from crdt_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    home,
+    local_entries,
+    ppermute,
+)
 
 COL_NAMES = (
     "client",
@@ -98,47 +104,52 @@ def make_ring_delta_step(mesh: Mesh, num_clients: int, budget: int):
     mesh entries. One replica an entry, as the reference requires.
 
     Step input: nine lists (in :data:`COL_NAMES` order), each of one
-    [1, N] column tensor an entry, on the entry. Returns, gathered onto
-    the first entry in mesh order,
+    [1, N] column tensor an entry, on the entry (on a pod, this
+    process's entries only, None elsewhere: the ring's pairs that
+    cross processes become sends and receives). Returns, gathered onto
+    the first entry in mesh order (on a pod, onto every process's
+    first entry),
 
     - ``sent_count`` [R] rows each replica shipped to its successor
     - ``recv_*``     [R, budget] columns each replica received from its
       predecessor
     """
-    devs = entries(mesh)
-    nd = len(devs)
+    nd = mesh.devices.size
     fwd = [(i, (i + 1) % nd) for i in range(nd)]
     bwd = [(i, (i - 1) % nd) for i in range(nd)]
+    local = local_entries(mesh)
+    dev0 = home(mesh)
 
     def step(*cols):
         if len(cols) != len(COL_NAMES):
             raise ValueError(f"expected {len(COL_NAMES)} columns")
         for col in cols:
-            if len(col) != nd or any(
-                    c.device != dev for c, dev in zip(col, devs)):
-                raise ValueError(f"each column must hold one part on "
-                                 f"each of the {nd} mesh entries")
-        n = cols[0][0].shape[1]
+            if len(col) != nd or any(col[k] is None or col[k].device != dev
+                                     for k, dev in local):
+                raise ValueError("each column must hold one part on "
+                                 "each of this process's mesh entries")
+        n = cols[0][local[0][0]].shape[1]
         if budget > n:
             raise ValueError(f"budget={budget} exceeds the {n} rows a "
                              "replica holds")
-        per = [tuple(col[k] for col in cols) for k in range(nd)]
-        sv_local = [statevec.build(p[0], p[1], p[8], num_clients)
-                    for p in per]
+        per = {k: tuple(col[k] for col in cols) for k, _ in local}
+        sv_local = [None] * nd
+        for k, p in per.items():
+            sv_local[k] = statevec.build(p[0], p[1], p[8], num_clients)
         # learn the SUCCESSOR's vector: it travels backwards round the ring
         succ_sv = ppermute(sv_local, bwd, mesh)
-        packed, sent = [], []
-        for p, sv in zip(per, succ_sv):
-            needed = statevec.diff_mask(p[0], p[1], p[8], sv)
-            rows, n_needed = _pack_rows(p, needed, budget)
-            packed.append(rows)
-            sent.append(n_needed)
+        packed = [None] * nd
+        sent = [None] * nd
+        for k, p in per.items():
+            needed = statevec.diff_mask(p[0], p[1], p[8], succ_sv[k])
+            packed[k], sent[k] = _pack_rows(p, needed, budget)
         # ship the packed rows forward to the successor
-        recv = [ppermute([rows[i] for rows in packed], fwd, mesh)
+        recv = [ppermute([None if rows is None else rows[i]
+                          for rows in packed], fwd, mesh)
                 for i in range(len(COL_NAMES))]
-        dev0 = devs[0]
-        return (torch.cat([s.to(dev0) for s in sent]),) + tuple(
-            torch.cat([r.to(dev0) for r in col]) for col in recv)
+        return (all_gather(sent, dev0, mesh).reshape(-1),) + tuple(
+            all_gather(col, dev0, mesh).reshape(nd, budget)
+            for col in recv)
 
     return step
 

@@ -14,8 +14,11 @@ One packed int64 block comes in per operand and ONE flat int64 vector
 goes out, at the reference's static offsets (:func:`fleet_out_sizes`).
 
 Over a mesh (:mod:`crdt_tpu_torch.parallel.mesh`, re-exported here
-under the reference's names) one process drives every entry, as the
-reference's one ``shard_map`` program does:
+under the reference's names) the steps run as the reference's one
+``shard_map`` program does: one process drives every entry, or, on a
+pod of processes (a ``torch.distributed`` group), each process runs the
+same step on the same inputs, works only on its own entries and ends
+holding the same replicated output:
 
 - :func:`make_hierarchical_gossip_step` — the two-tier fan-in of a
   (hosts, replicas) mesh: per-entry state vectors, then the replicas
@@ -54,8 +57,11 @@ from crdt_tpu_torch.parallel.mesh import (  # noqa: F401  (re-exports)
     Mesh,
     all_gather,
     all_gather2,
+    RemoteEntry,
     broadcast,
     entries,
+    home,
+    local_entries,
     make_mesh,
     make_mesh2d,
 )
@@ -171,13 +177,22 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
 
 
-def _check_parts(parts, devs, what: str) -> None:
+def _check_parts(parts, mesh: Mesh, what: str) -> None:
+    """One part an entry of ``mesh``, each on its entry; on a pod a
+    remote entry's slot is None (a process holds only its own)."""
+    devs = entries(mesh)
     if len(parts) != len(devs):
         raise ValueError(f"{what}: {len(parts)} parts for a mesh of "
                          f"{len(devs)} entries")
     for k, (p, dev) in enumerate(zip(parts, devs)):
-        if p.device != dev:
-            raise ValueError(f"{what}: entry {k} lies on {p.device}, "
+        if isinstance(dev, RemoteEntry):
+            if p is not None:
+                raise ValueError(f"{what}: entry {k} belongs to rank "
+                                 f"{dev.rank}; this process holds no "
+                                 "part of it")
+        elif p is None or p.device != dev:
+            raise ValueError(f"{what}: entry {k} lies on "
+                             f"{None if p is None else p.device}, "
                              f"the mesh puts it on {dev}")
 
 
@@ -192,26 +207,29 @@ def make_hierarchical_gossip_step(mesh: Mesh, num_segments: int,
 
     Step inputs: one packed [9, r, N] int64 block an entry (the
     entry's r = R / entries replicas, mesh order, on the entry) and
-    the packed [3, D] deletes on the first entry. Each entry builds its
-    replicas' state vectors; the union and the vectors gather onto the
-    first entry, which converges the union once: the output vector is
-    the one the reference replicates on every device."""
+    the packed [3, D] deletes on the first entry (:func:`home`: on a
+    pod, this process's first entry; a remote entry's block is None).
+    Each entry builds its replicas' state vectors; the union and the
+    vectors gather onto the first entry, which converges the union
+    once (on a pod every process does: the reference's replicated
+    compute): the output vector is the one the reference replicates
+    on every device."""
     if len(mesh.axis_names) != 2:
         raise ValueError("the two-tier step runs on a (hosts, replicas) "
                          "mesh")
-    devs = entries(mesh)
-    dev0 = devs[0]
+    dev0 = home(mesh)
+    local = local_entries(mesh)
 
     def step(parts, dels: torch.Tensor) -> torch.Tensor:
-        _check_parts(parts, devs, "hierarchical step")
+        _check_parts(parts, mesh, "hierarchical step")
         if dels.device != dev0:
             raise ValueError(f"the deletes must lie on {dev0}")
-        sv_parts = []
-        for part, dev in zip(parts, devs):
+        sv_parts = [None] * len(parts)
+        for k, dev in local:
             with _on(dev):
-                cols = _unpack_cols(part)
-                sv_parts.append(statevec.build(cols[0], cols[1], cols[8],
-                                               num_clients))
+                cols = _unpack_cols(parts[k])
+                sv_parts[k] = statevec.build(cols[0], cols[1], cols[8],
+                                             num_clients)
         with _on(dev0):
             svs = all_gather2(sv_parts, mesh).reshape(-1, num_clients)
             global_sv = statevec.merge(svs)
@@ -255,25 +273,28 @@ def make_segment_sharded_step(mesh: Mesh, num_segments: int,
 
     Inputs: one packed [9, N_d] int64 block an entry (on the entry),
     the [R, C] ``svs`` and the packed [3, D] deletes on the first entry
-    (broadcast to every entry). Output: ONE int64 vector on the first
-    entry, the entries' [X] blocks in mesh order (X from
+    (broadcast to every entry; on a pod, this process's first entry,
+    and only its own entries' blocks). Output: ONE int64 vector on the
+    first entry (on a pod, on every process's), the entries' [X]
+    blocks in mesh order (X from
     :func:`segment_out_sizes`), so the host reshapes the fetch to
     [nd, X] and slices it."""
-    devs = entries(mesh)
-    nd = len(devs)
+    nd = mesh.devices.size
     blk = -(-n_replicas // nd)  # deficit rows an entry
+    dev0 = home(mesh)
+    local = local_entries(mesh)
 
     def step(parts, svs: torch.Tensor, dels: torch.Tensor) -> torch.Tensor:
-        _check_parts(parts, devs, "segment step")
+        _check_parts(parts, mesh, "segment step")
         if svs.shape[0] != n_replicas:
             raise ValueError(f"svs has {svs.shape[0]} rows, the step was "
                              f"built for {n_replicas} replicas")
         svs_on = broadcast(svs, mesh)
         dels_on = broadcast(dels, mesh)
-        outs = []
-        for d, (part, dev) in enumerate(zip(parts, devs)):
+        outs = [None] * nd
+        for d, dev in local:
             with _on(dev):
-                flat = [x.reshape(-1) for x in _unpack_cols(part)]
+                flat = [x.reshape(-1) for x in _unpack_cols(parts[d])]
                 dl = dels_on[d]
                 map_order, _, winners, winner_visible, _, _ = converge_maps(
                     *flat, dl[0], dl[1], dl[2], num_segments=num_segments,
@@ -287,13 +308,13 @@ def make_segment_sharded_step(mesh: Mesh, num_segments: int,
                     my_rows = torch.cat([my_rows, sv.new_zeros(
                         (blk - my_rows.shape[0], sv.shape[1]))])
                 deficit_blk = statevec.exact_missing_rows(my_rows, sv)
-                outs.append(torch.cat([
+                outs[d] = torch.cat([
                     x.reshape(-1).to(torch.int64)
                     for x in (deficit_blk, winners, winner_visible,
                               seq_order, seq_seg, seq_rank, seq_len,
                               map_order)
-                ]))
-        return all_gather(outs, devs[0]).reshape(-1)
+                ])
+        return all_gather(outs, dev0, mesh).reshape(-1)
 
     return step
 
@@ -321,28 +342,31 @@ def make_packed_shard_step(mesh: Mesh, *, num_segments: int,
     entry, as lists (the step drops its reference to each block row
     once the widening prelude has read it: torch has no donation).
     Returns (the K per-shard int32 results [S+B], each on its entry;
-    the merged [sv_len] int64 vector on the first entry)."""
-    devs = entries(mesh)
+    the merged [sv_len] int64 vector on the first entry). On a pod a
+    process converges only its own entries' rows (the other slots stay
+    None) and every process merges the gathered wires."""
     sizes = _section_sizes(num_segments, seq_bucket, map_bucket)
+    dev0 = home(mesh)
+    local = local_entries(mesh)
 
     def step(blocks: list, wires) -> tuple:
-        _check_parts(blocks, devs, "shard step")
-        _check_parts(wires, devs, "shard step wire")
-        outs = []
-        for k, dev in enumerate(devs):
+        _check_parts(blocks, mesh, "shard step")
+        _check_parts(wires, mesh, "shard step wire")
+        outs = [None] * len(blocks)
+        for k, dev in local:
             blk, blocks[k] = blocks[k], None
             with _on(dev), torch.profiler.record_function(
                     "crdt.shard.converge"):
                 secs = _decode_sections(blk, sizes, encs)
                 del blk
-                outs.append(_converge_packed_body(
+                outs[k] = _converge_packed_body(
                     *secs, num_segments=num_segments,
                     seq_bucket=seq_bucket, map_bucket=map_bucket,
                     rank_rounds=rank_rounds, map_rounds=map_rounds,
-                ))
-        with _on(devs[0]), torch.profiler.record_function(
+                )
+        with _on(dev0), torch.profiler.record_function(
                 "crdt.shard.boundary_exchange"):
-            w = all_gather(wires, devs[0])
+            w = all_gather(wires, dev0, mesh)
             if sv_mode == "hilo":
                 hi = w[:, :sv_len].to(torch.int64)
                 lo = w[:, sv_len:2 * sv_len].to(torch.int64)

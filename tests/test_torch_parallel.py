@@ -297,9 +297,9 @@ class TestFaultPlan:
                     assert (a == b).all()
 
     def test_recorder_events_match_reference(self):
-        mine = recorder.set_recorder(recorder.FlightRecorder(enabled=True))
-        theirs = ref_recorder.set_recorder(
-            ref_recorder.FlightRecorder(enabled=True))
+        mine, theirs = recorder.get_recorder(), ref_recorder.get_recorder()
+        recorder.set_recorder(recorder.FlightRecorder(enabled=True))
+        ref_recorder.set_recorder(ref_recorder.FlightRecorder(enabled=True))
         try:
             gossip.GossipFaultPlan(5, drop=0.4, partition_every=2
                                    ).partition_masks(2, 8)

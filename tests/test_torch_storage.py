@@ -365,6 +365,51 @@ def test_disk_faults_match_reference(tmp_path):
     kv.close()
 
 
+class _NullFs:
+    """The inner fs of a :class:`faults.FaultyFs` whose ops never land."""
+
+    def write(self, path, data):
+        pass
+
+
+@pytest.mark.parametrize("seam", ["kv", "fs"])
+def test_fault_event_recorded_with_recorder_on(seam, tmp_path):
+    """One scheduled write failure under an enabled flight recorder:
+    the port records one ``fault.disk`` / ``fault.fs`` event with the
+    fault under ``fault``; the reference passes it as ``kind=``, which
+    collides with ``record``'s own first parameter and raises
+    ``TypeError`` (ROADMAP §C)."""
+    from crdt_tpu.guard import faults as ref_faults
+    from crdt_tpu.obs import recorder as ref_recorder
+    from crdt_tpu_torch.obs import recorder as port_recorder
+
+    def inject(mod, path):
+        sched = mod.DiskFaultSchedule(fail_writes={0})
+        if seam == "kv":
+            wrapped = mod.FaultyKv(port_kv.KvLog(path), sched)
+            try:
+                wrapped.write(port_kv.Batch().put(b"k", b"v"))
+            finally:
+                wrapped.close()
+        else:
+            mod.FaultyFs(_NullFs(), sched).write(path, b"data")
+
+    saved = port_recorder.get_recorder(), ref_recorder.get_recorder()
+    port_recorder.set_recorder(port_recorder.FlightRecorder(enabled=True))
+    ref_recorder.set_recorder(ref_recorder.FlightRecorder(enabled=True))
+    try:
+        with pytest.raises(OSError):
+            inject(faults, str(tmp_path / "port.kvlog"))
+        with pytest.raises(TypeError, match="multiple values"):
+            inject(ref_faults, str(tmp_path / "ref.kvlog"))
+        events = port_recorder.get_recorder().events()
+    finally:
+        port_recorder.set_recorder(saved[0])
+        ref_recorder.set_recorder(saved[1])
+    want = "fault.disk" if seam == "kv" else "fault.fs"
+    assert [(e["kind"], e["fault"]) for e in events] == [(want, "eio")]
+
+
 def test_prefers_batch_verb_for_log_persistence():
     assert port_replica._prefers_batch_verb(port_storage.LogPersistence)
 

@@ -502,6 +502,151 @@ class TestRelayFallback:
             _close(routers)
 
 
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_synced_joiner_that_loses_its_answers_stalls_until_probed(pkg):
+    """A replica built before it hears any peer takes itself for the
+    solo first node and is synced with nothing. When its peer appears,
+    the peer's state reaches it only as the answers to the two
+    ``peer_joined`` probes. If those are lost, nothing retries a synced
+    replica's probe: the join stalls for good, in both packages alike
+    (ROADMAP §C). One more probe, as ``chip_smoke.py``'s late join
+    makes when it finds this stall, completes it."""
+    router, rep = ((UdpRouter, Replica) if pkg == "port"
+                   else (RefUdpRouter, RefReplica))
+    routers = [router()]
+    try:
+        a = rep(routers[0], topic="room", client_id=1)
+        pump(routers)
+        a.set("cfg", "mode", "dark")
+        a.push("log", ["a", "b"])
+        pump(routers)
+        late = router()
+        routers.append(late)
+        b = rep(late, topic="room", client_id=3)
+        assert b.synced and not b.c
+        lost: list = []
+        send = a._to_peer
+
+        def lose_updates(pk, msg):
+            if "update" in msg:
+                lost.append(msg)
+            else:
+                send(pk, msg)
+
+        a._to_peer = lose_updates
+        late.add_peer(*routers[0].addr)
+        pump(routers)
+        a._to_peer = send
+        assert len(lost) == 2  # the answer and the back-diff
+        for _ in range(3):  # the fabric is whole again; nothing retries
+            pump(routers)
+            assert b.synced and not b.c
+        assert b.state_vector() != a.state_vector()
+        b.probe()
+        pump(routers)
+        assert b.state_vector() == a.state_vector()
+        assert b.c == a.c and b.c["cfg"]["mode"] == "dark"
+    finally:
+        _close(routers)
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_member_that_lost_its_rendezvous_proof_is_never_introduced(pkg):
+    """The liveness challenge that proves a rendezvous's key is sent
+    once, and only a member that proved it refreshes its announcement
+    there. A member whose challenge was lost ages out of the
+    rendezvous's introductions, and a newcomer that announces then is
+    never introduced to it, not even after the member proves the key
+    later: the rendezvous introduces only on a newly announced topic.
+    Both packages alike (ROADMAP §C). A re-dial of the rendezvous, as
+    ``chip_smoke.py``'s joins make, proves it, and the next newcomer
+    meets the member."""
+    router = UdpRouter if pkg == "port" else RefUdpRouter
+    ttl = {"announce_ttl": 0.3}
+    boot = router(rendezvous=True, **ttl)
+    routers = [boot]
+
+    def member(**kw):
+        r = router(bootstrap=[boot.addr], **ttl, **kw)
+        routers.append(r)
+        r.start()
+        r.alow("room", lambda msg, pk: None)
+        return r
+
+    def settle(rounds: int = 3) -> None:
+        for _ in range(rounds):
+            pump(routers)
+            time.sleep(0.15)
+        pump(routers)
+
+    try:
+        lost: list = []
+        a = router(bootstrap=[boot.addr], **ttl)
+        routers.append(a)
+        a._challenge_liveness = lambda peer, addr: lost.append(addr)
+        a.start()
+        a.alow("room", lambda msg, pk: None)
+        pump(routers)
+        del a._challenge_liveness
+        assert lost and a.public_key in boot.peers_on("room")
+        assert boot.public_key not in a._rendezvous_pks
+        settle()  # past A's TTL: A never refreshes its announcement
+        b = member()
+        settle()
+        assert boot.public_key in b._rendezvous_pks
+        assert a.public_key not in b.peers and b.public_key not in a.peers
+        a.add_peer(*boot.addr)  # the re-dial: A proves R's key now
+        settle()
+        assert boot.public_key in a._rendezvous_pks
+        assert a.public_key not in b.peers  # B's join stays stalled
+        c = member()
+        settle()
+        assert a.public_key in c.peers_on("room")
+        assert c.public_key in a.peers_on("room")
+    finally:
+        _close(routers)
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_lost_topic_announcement_to_a_direct_peer_stays_lost(pkg):
+    """A router announces its topics to a direct peer once, when their
+    hellos meet (only rendezvous and relay-routed peers get the
+    refresh). If that announcement is lost, the peer never lists the
+    router on the topic, in both packages alike (ROADMAP §C). A re-dial
+    of the peer, as ``chip_smoke.py``'s joins make, makes both ends
+    announce again."""
+    router = UdpRouter if pkg == "port" else RefUdpRouter
+    a, b = router(announce_ttl=0.3), router(announce_ttl=0.3)
+    routers = [a, b]
+    try:
+        for r in routers:
+            r.alow("room", lambda msg, pk: None)
+        lost: list = []
+        announce = b._announce_topics
+
+        def lose_first(peer=None, targets=None):
+            if peer is not None and peer.pk_hex == a.public_key \
+                    and not lost:
+                lost.append(peer.pk_hex)
+                return
+            announce(peer, targets)
+
+        b._announce_topics = lose_first
+        a.add_peer(*b.addr)
+        for _ in range(3):
+            pump(routers)
+            time.sleep(0.15)
+        del b._announce_topics
+        assert lost and b.public_key in a.peers
+        assert a.public_key in b.peers_on("room")
+        assert b.public_key not in a.peers_on("room")
+        a.add_peer(*b.addr)  # the re-dial
+        pump(routers)
+        assert b.public_key in a.peers_on("room")
+    finally:
+        _close(routers)
+
+
 # ---------------------------------------------------------------------------
 # the mixed swarm: one network, both packages
 # ---------------------------------------------------------------------------
