@@ -1,0 +1,9 @@
+"""replay.assemble_ms: the replay assembly's ``gather``, ``materialize``
+and ``compact`` spans, milliseconds a replay."""
+
+from benchmark.harness import readers
+
+
+def read(r):
+    return readers.span_ms_per(
+        r, ["gather", "materialize", "compact"], "replays")

@@ -1,0 +1,8 @@
+"""replay.stage_ms: the staging layer's ``pack`` span (the packed plan
+of the union), milliseconds a replay."""
+
+from benchmark.harness import readers
+
+
+def read(r):
+    return readers.span_ms_per(r, ["pack"], "replays")
