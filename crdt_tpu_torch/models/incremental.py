@@ -77,7 +77,6 @@ from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_ANY, K_GC, K_TYPE, TYPE_MAP
 from crdt_tpu_torch.guard.device import dispatch_guarded
 from crdt_tpu_torch.models.replay import rows_visible
-from crdt_tpu_torch.obs.profiling import device_annotation
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed as pk
 from crdt_tpu_torch.ops.device import (
@@ -1743,8 +1742,7 @@ class IncrementalReplay:
             # the next healthy device round (the same contract the
             # crossover uses). A kernel error, a CUDA error or an
             # out-of-memory is not caught: it propagates out of apply().
-            with get_tracer().span("incremental.dispatch"), \
-                    device_annotation("crdt.incremental.dispatch"):
+            with get_tracer().span("incremental.dispatch"):
                 res = dispatch_guarded(
                     "incremental.converge", _dispatch, host=lambda: None
                 )
@@ -1757,8 +1755,7 @@ class IncrementalReplay:
                 host_segs.extend(dev_segs)
                 dev_segs = []
         if dev_segs:
-            with get_tracer().span("incremental.readback"), \
-                    device_annotation("crdt.incremental.readback"):
+            with get_tracer().span("incremental.readback"):
                 self._read_back(res, tpad)
         # host rounds: no device work at all — the unspliced tail
         # waits for the next device round (see the crossover comment).

@@ -595,8 +595,10 @@ class MultiDocServer:
         """Canonical digest of the doc's converged cache, computed
         LAZILY and cached per (op count, serve tick): converging
         never digests, and a clean doc re-beacons at zero digest
-        cost (round-15 satellite)."""
-        return self._digest_of(self._docs[doc_id])
+        cost (round-15 satellite). The tracer's ``digest`` span, one
+        a read."""
+        with get_tracer().span("digest"):
+            return self._digest_of(self._docs[doc_id])
 
     def _digest_of(self, st) -> str:
         key = (st.n_ops, st.served_tick)

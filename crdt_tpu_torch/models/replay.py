@@ -74,16 +74,23 @@ class ReplayResult(NamedTuple):
 
 def decode(blobs: Sequence[bytes]) -> Dict:
     """Wire -> canonical columnar union (native C codec when built;
-    duplicate ids from redelivered blobs are dropped, first wins)."""
-    with get_tracer().span("decode"):
-        return native.dedup_columns(
-            native.decode_updates_columns_any(blobs)
-        )
+    duplicate ids from redelivered blobs are dropped, first wins). The
+    tracer's ``decode`` span, split into ``decode.parse`` and
+    ``decode.dedup``."""
+    tracer = get_tracer()
+    with tracer.span("decode"):
+        with tracer.span("decode.parse"):
+            dec = native.decode_updates_columns_any(blobs)
+        with tracer.span("decode.dedup"):
+            return native.dedup_columns(dec)
 
 
 def stage(dec: Dict) -> Tuple[Dict[str, np.ndarray], DeleteSet]:
-    """Kernel-facing columns + merged delete set."""
-    return native.kernel_columns(dec), native.ds_from_triples(dec["ds"])
+    """Kernel-facing columns + merged delete set (the tracer's
+    ``columns`` span)."""
+    with get_tracer().span("columns"):
+        return (native.kernel_columns(dec),
+                native.ds_from_triples(dec["ds"]))
 
 
 def converge(cols: Dict[str, np.ndarray], *,

@@ -8,10 +8,19 @@ The port's counterpart of ``crdt_tpu.obs.profiling``:
   JSON (open it at ui.perfetto.dev or in TensorBoard). A failure inside
   the block can never leave the profiler running, and a failing stop
   never masks the body's exception.
-- :func:`device_annotation` is the per-dispatch annotation seam: a
-  ``torch.profiler.record_function`` range, so a trace attributes each
-  converge dispatch and each streaming shard to its phase. Outside a
-  profiling session it costs one small object.
+- Every tracer span is a range of the capture: while the profiler
+  records, ``get_tracer().span(name)`` opens
+  ``record_function(f"crdt.{name}")`` around its block, enabled tracer
+  or not (:mod:`crdt_tpu_torch.obs.tracer`). So a capture shows the
+  host's phases (``crdt.decode``, ``crdt.decode.parse``,
+  ``crdt.columns``, ``crdt.pack``, ``crdt.pack.ids`` ...,
+  ``crdt.converge.dispatch``, ``crdt.gather``, ``crdt.digest`` ...)
+  nested on the profiler's own clock, each kernel linked to the range
+  that launched it.
+- :func:`device_annotation` names a range that is no span (each
+  streaming shard's ``crdt.stream.shard<k>``): a
+  ``torch.profiler.record_function`` range. Outside a profiling
+  session it costs one small object.
 """
 
 from __future__ import annotations

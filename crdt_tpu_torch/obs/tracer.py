@@ -11,6 +11,15 @@ no-op context manager and ``count`` / ``gauge`` / ``observe`` return
 before touching any state. Spans aggregate count / total / max / min
 and a base-2 log-bucketed histogram (1 microsecond floor), so
 ``report()`` carries p50/p90/p99 per phase.
+
+Spans are also profiler ranges: while a ``torch.profiler`` session is
+recording, ``span(name)`` opens ``record_function(f"crdt.{name}")``
+around the same block, whether or not the tracer is enabled. The host
+ranges then lie on the profiler's own clock, nested as the spans nest,
+and every kernel links to the range that launched it. With neither the
+profiler nor the tracer on, ``span`` costs one check of the profiler's
+flag and returns the shared no-op. Durations recorded with
+``observe`` (no block to wrap) have no range.
 """
 
 from __future__ import annotations
@@ -21,6 +30,9 @@ import time
 from bisect import bisect_left
 from contextlib import nullcontext
 from typing import Any, Dict, Optional
+
+import torch.autograd.profiler as _profiler
+from torch.profiler import record_function
 
 # base-2 bucket upper edges, 1us floor: bucket k holds durations in
 # (edge[k-1], edge[k]] — an observation exactly AT an edge lands in
@@ -112,18 +124,26 @@ _NULL_SPAN = nullcontext()
 
 
 class _LiveSpan:
-    __slots__ = ("_tracer", "_name", "_t0")
+    """A timed span; while the profiler records, also the ``crdt.<name>``
+    range around the block (``rng``)."""
 
-    def __init__(self, tracer: "Tracer", name: str):
+    __slots__ = ("_tracer", "_name", "_t0", "_range")
+
+    def __init__(self, tracer: "Tracer", name: str, rng=None):
         self._tracer = tracer
         self._name = name
+        self._range = rng
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return None
 
     def __exit__(self, *exc):
         self._tracer.observe(self._name, time.perf_counter() - self._t0)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -164,9 +184,15 @@ class Tracer:
 
     # -- phases ----------------------------------------------------------
     def span(self, name: str):
+        """Time the block into ``name``'s histogram (enabled tracer)
+        and, while the profiler records, mark it as the range
+        ``crdt.<name>`` (either way)."""
+        rng = None
+        if _profiler._is_profiler_enabled:
+            rng = record_function(f"crdt.{name}")
         if not self.enabled:
-            return _NULL_SPAN
-        return _LiveSpan(self, name)
+            return _NULL_SPAN if rng is None else rng
+        return _LiveSpan(self, name, rng)
 
     def observe(self, name: str, seconds: float) -> None:
         """Record an externally measured duration into ``name``'s

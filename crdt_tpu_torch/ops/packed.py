@@ -235,8 +235,7 @@ def converge_async(plan: PackedPlan, *, device="cuda") -> ConvergeHandle:
     which the caching allocator hands its block to the converge's
     temporaries (the reuse JAX got by donating the buffer)."""
     dev = resolve_device(device)
-    with get_tracer().span("converge.dispatch"), \
-            torch.profiler.record_function("crdt.converge.dispatch"):
+    with get_tracer().span("converge.dispatch"):
         secs = _device_sections(plan, dev)
         out = _converge_packed_body(*secs, **_plan_args(plan))
         event = None
@@ -250,8 +249,7 @@ def converge_fetch(handle: ConvergeHandle) -> PackedResult:
     """Wait for an enqueued converge (the event), fetch its one packed
     result and assemble it into caller row space (the tracer's
     ``converge.fetch`` span: wait + transfer + assembly)."""
-    with get_tracer().span("converge.fetch"), \
-            torch.profiler.record_function("crdt.converge.fetch"):
+    with get_tracer().span("converge.fetch"):
         if handle.event is not None:
             handle.event.synchronize()  # execution wait, not transfer
         h = xfer_fetch(handle.out, label="converge.out")

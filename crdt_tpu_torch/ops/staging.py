@@ -811,7 +811,16 @@ def stage(cols: Dict[str, np.ndarray],
           put=None, wide: Optional[bool] = None,
           _sections: Optional[list] = None) -> Optional[PackedPlan]:
     """Pack kernel columns into the single-transfer matrix (the
-    tracer's ``pack`` span — one per staged union).
+    tracer's ``pack`` span — one per staged union). Inside it each pass
+    of :func:`_stage` has a span of its own: ``pack.ids`` (id
+    interning, sort and dedup, segments, origins, the compact sequence
+    block), ``pack.rights`` (right-origin ranks), ``pack.split`` (the
+    subtree split), ``pack.maps`` (the map block) and ``pack.siblings``
+    (the sibling tables). A pass that does not run records nothing.
+    Groups 1 and 2's eager encode and ``put`` lie in the span of the
+    pass that builds the group; ``pack.encode`` holds group 0's (sized
+    after the split) and the one matrix encode of a plan staged without
+    ``put``.
 
     See :func:`_stage` for the layout contract (``_sections`` is the
     mesh sharder's layout-only seam)."""
@@ -922,140 +931,142 @@ def _stage(cols: Dict[str, np.ndarray],
     """
     if wide is None:
         wide = wide_staging_forced()
-    client = np.asarray(cols["client"], np.int64)
-    clock = np.asarray(cols["clock"], np.int64)
-    pir = np.asarray(cols["parent_is_root"], bool)
-    pa = np.asarray(cols["parent_a"], np.int64)
-    pb = np.asarray(cols["parent_b"], np.int64)
-    kid = np.asarray(cols["key_id"], np.int64)
-    oc = np.asarray(cols["origin_client"], np.int64)
-    ock = np.asarray(cols["origin_clock"], np.int64)
-    valid = np.asarray(cols["valid"], bool)
-    n = len(client)
-    if n == 0 or not valid.any():
-        return None
-    # bound checks consider only admitted rows: garbage in invalid /
-    # padding rows must not force a spurious fallback (advisor
-    # finding, round 2)
-    if int(clock[valid].max()) >= (1 << _CLOCK_BITS):
-        return None
-    live_origin = valid & (oc >= 0)
-    if live_origin.any() and int(ock[live_origin].max()) >= (1 << _CLOCK_BITS):
-        return None
-
-    # multi-doc staging (round 14): doc-id becomes a first-class
-    # segment column — client ids fold into doc-composite ids (one
-    # doc's ids can never collide with another's) and the parent-ref
-    # interning below takes doc as its MAJOR key, so segments are
-    # doc-pure and numbered doc-major. One dispatch then converges a
-    # whole tenant batch with per-doc outputs byte-identical to each
-    # doc converged alone.
-    doc = _doc_column(cols, valid)
-    if doc is not None:
-        composed = _compose_doc_ids(cols, doc, client, oc, valid,
-                                    live_origin)
-        if composed is None:
+    tracer = get_tracer()
+    with tracer.span("pack.ids"):
+        client = np.asarray(cols["client"], np.int64)
+        clock = np.asarray(cols["clock"], np.int64)
+        pir = np.asarray(cols["parent_is_root"], bool)
+        pa = np.asarray(cols["parent_a"], np.int64)
+        pb = np.asarray(cols["parent_b"], np.int64)
+        kid = np.asarray(cols["key_id"], np.int64)
+        oc = np.asarray(cols["origin_client"], np.int64)
+        ock = np.asarray(cols["origin_clock"], np.int64)
+        valid = np.asarray(cols["valid"], bool)
+        n = len(client)
+        if n == 0 or not valid.any():
             return None
-        cols, client, oc = composed
+        # bound checks consider only admitted rows: garbage in invalid /
+        # padding rows must not force a spurious fallback (advisor
+        # finding, round 2)
+        if int(clock[valid].max()) >= (1 << _CLOCK_BITS):
+            return None
+        live_origin = valid & (oc >= 0)
+        if live_origin.any() and int(ock[live_origin].max()) >= (1 << _CLOCK_BITS):
+            return None
 
-    # dense order-preserving client ranks (origins share the table;
-    # only admitted rows contribute — garbage in invalid rows must not
-    # widen client_bits toward a spurious key-width fallback)
-    uniq = np.unique(np.concatenate([client[valid], oc[live_origin]]))
-    client_d = np.searchsorted(uniq, np.clip(client, uniq[0], None))
-    client_d = np.where(valid, client_d, 0)
-    oc_d = np.where(oc >= 0, np.searchsorted(uniq, np.clip(oc, uniq[0], None)), -1)
+        # multi-doc staging (round 14): doc-id becomes a first-class
+        # segment column — client ids fold into doc-composite ids (one
+        # doc's ids can never collide with another's) and the parent-ref
+        # interning below takes doc as its MAJOR key, so segments are
+        # doc-pure and numbered doc-major. One dispatch then converges a
+        # whole tenant batch with per-doc outputs byte-identical to each
+        # doc converged alone.
+        doc = _doc_column(cols, valid)
+        if doc is not None:
+            composed = _compose_doc_ids(cols, doc, client, oc, valid,
+                                        live_origin)
+            if composed is None:
+                return None
+            cols, client, oc = composed
 
-    # dense parent refs: exact two-key unique via lexsort runs. With
-    # docs active the doc column is the MAJOR sort key, so parent
-    # refs (and through segkey_of, segments) never merge across docs
-    # and number doc-major — within one doc the order is exactly the
-    # single-doc (pir, pa, pb) order, so a doc's slice of the packed
-    # stream is its own oracle stream
-    if doc is not None:
-        porder = np.lexsort((pb, pa, pir, doc))
-        doc_s = doc[porder]
-        doc_run = np.r_[False, doc_s[1:] != doc_s[:-1]]
-    else:
-        porder = np.lexsort((pb, pa, pir))
-        doc_run = False
-    pir_s, pa_s, pb_s = pir[porder], pa[porder], pb[porder]
-    new_run = np.r_[
-        True,
-        (pir_s[1:] != pir_s[:-1])
-        | (pa_s[1:] != pa_s[:-1])
-        | (pb_s[1:] != pb_s[:-1]),
-    ] | doc_run
-    ref_sorted = np.cumsum(new_run) - 1
-    pref = np.empty(n, np.int64)
-    pref[porder] = ref_sorted
+        # dense order-preserving client ranks (origins share the table;
+        # only admitted rows contribute — garbage in invalid rows must not
+        # widen client_bits toward a spurious key-width fallback)
+        uniq = np.unique(np.concatenate([client[valid], oc[live_origin]]))
+        client_d = np.searchsorted(uniq, np.clip(client, uniq[0], None))
+        client_d = np.where(valid, client_d, 0)
+        oc_d = np.where(oc >= 0, np.searchsorted(uniq, np.clip(oc, uniq[0], None)), -1)
 
-    kid_max = int(kid[valid].max())
-    if (int(pref[valid].max()) >= (1 << _PREF_BITS)
-            or kid_max >= (1 << _KID_BITS)):
-        return None
+        # dense parent refs: exact two-key unique via lexsort runs. With
+        # docs active the doc column is the MAJOR sort key, so parent
+        # refs (and through segkey_of, segments) never merge across docs
+        # and number doc-major — within one doc the order is exactly the
+        # single-doc (pir, pa, pb) order, so a doc's slice of the packed
+        # stream is its own oracle stream
+        if doc is not None:
+            porder = np.lexsort((pb, pa, pir, doc))
+            doc_s = doc[porder]
+            doc_run = np.r_[False, doc_s[1:] != doc_s[:-1]]
+        else:
+            porder = np.lexsort((pb, pa, pir))
+            doc_run = False
+        pir_s, pa_s, pb_s = pir[porder], pa[porder], pb[porder]
+        new_run = np.r_[
+            True,
+            (pir_s[1:] != pir_s[:-1])
+            | (pa_s[1:] != pa_s[:-1])
+            | (pb_s[1:] != pb_s[:-1]),
+        ] | doc_run
+        ref_sorted = np.cumsum(new_run) - 1
+        pref = np.empty(n, np.int64)
+        pref[porder] = ref_sorted
 
-    # id sort + dedup (dense client ranks are monotone in the raw ids,
-    # so the dense-packed id sorts identically to the raw-packed one)
-    ikey = np.where(
-        valid, (client_d << _CLOCK_BITS) | clock, np.int64(2**62)
-    )
-    order = np.argsort(ikey, kind="stable").astype(np.int32)
-    ikey_s = ikey[order]
-    kid_s = kid[order]
-    pref_s = pref[order]
-    oc_s = oc_d[order]
-    ock_s = ock[order]
-    valid_s = valid[order]
-    client_s = client_d[order]
-    dup = np.r_[False, ikey_s[1:] == ikey_s[:-1]]
-    uniq_valid = valid_s & ~dup
+        kid_max = int(kid[valid].max())
+        if (int(pref[valid].max()) >= (1 << _PREF_BITS)
+                or kid_max >= (1 << _KID_BITS)):
+            return None
 
-    # dense segments over live rows; map segkeys carry bit 62, so
-    # np.unique numbers every sequence segment below every map segment
-    sk = segkey_of(pref_s, kid_s)
-    uniq_sk, seg_inv, seg_counts = np.unique(
-        sk[uniq_valid], return_inverse=True, return_counts=True
-    )
-    n_segs = len(uniq_sk)
-    if n_segs >= _SEQ_FLAG:
-        return None
-    seg = np.full(n, -1, np.int64)
-    seg[uniq_valid] = seg_inv
-    map_seg = uniq_sk >= (1 << _MAP_FLAG_BIT)
-    # per-segment populations bound the device doubling rounds: a DFS
-    # path cannot exceed its segment's row count + 1 (virtual root),
-    # a map key chain cannot be deeper than its segment's row count
-    max_map = int(seg_counts[map_seg].max()) if map_seg.any() else 1
-    max_seq = int(seg_counts[~map_seg].max()) if (~map_seg).any() else 1
-
-    # origin rows by binary search over the sorted ids (leftmost match
-    # is the kept representative of any duplicate run)
-    okey = np.where(
-        oc_s >= 0, (oc_s << _CLOCK_BITS) | ock_s, np.int64(-1)
-    )
-    pos = np.searchsorted(ikey_s, okey)
-    posc = np.clip(pos, 0, n - 1)
-    origin_row = np.where(
-        (okey >= 0) & (ikey_s[posc] == okey), posc, -1
-    )
-    is_map_row = uniq_valid & (kid_s >= 0)
-
-    # compact sequence block: seq rows ascending (= id rank ascending),
-    # same-segment origins resolved to compact positions
-    seq_rows = np.flatnonzero(uniq_valid & (kid_s < 0))
-    n_seq = len(seq_rows)
-    if n_seq:
-        o_rows = origin_row[seq_rows]
-        o_seg = seg[np.clip(o_rows, 0, n - 1)]
-        same_seg = (o_rows >= 0) & (o_seg == seg[seq_rows])
-        cpos = np.searchsorted(seq_rows, np.clip(o_rows, 0, None))
-        cposc = np.clip(cpos, 0, n_seq - 1)
-        c_parent = np.where(
-            same_seg & (seq_rows[cposc] == o_rows), cposc, -1
+        # id sort + dedup (dense client ranks are monotone in the raw ids,
+        # so the dense-packed id sorts identically to the raw-packed one)
+        ikey = np.where(
+            valid, (client_d << _CLOCK_BITS) | clock, np.int64(2**62)
         )
-    else:
-        c_parent = np.empty(0, np.int64)
+        order = np.argsort(ikey, kind="stable").astype(np.int32)
+        ikey_s = ikey[order]
+        kid_s = kid[order]
+        pref_s = pref[order]
+        oc_s = oc_d[order]
+        ock_s = ock[order]
+        valid_s = valid[order]
+        client_s = client_d[order]
+        dup = np.r_[False, ikey_s[1:] == ikey_s[:-1]]
+        uniq_valid = valid_s & ~dup
+
+        # dense segments over live rows; map segkeys carry bit 62, so
+        # np.unique numbers every sequence segment below every map segment
+        sk = segkey_of(pref_s, kid_s)
+        uniq_sk, seg_inv, seg_counts = np.unique(
+            sk[uniq_valid], return_inverse=True, return_counts=True
+        )
+        n_segs = len(uniq_sk)
+        if n_segs >= _SEQ_FLAG:
+            return None
+        seg = np.full(n, -1, np.int64)
+        seg[uniq_valid] = seg_inv
+        map_seg = uniq_sk >= (1 << _MAP_FLAG_BIT)
+        # per-segment populations bound the device doubling rounds: a DFS
+        # path cannot exceed its segment's row count + 1 (virtual root),
+        # a map key chain cannot be deeper than its segment's row count
+        max_map = int(seg_counts[map_seg].max()) if map_seg.any() else 1
+        max_seq = int(seg_counts[~map_seg].max()) if (~map_seg).any() else 1
+
+        # origin rows by binary search over the sorted ids (leftmost match
+        # is the kept representative of any duplicate run)
+        okey = np.where(
+            oc_s >= 0, (oc_s << _CLOCK_BITS) | ock_s, np.int64(-1)
+        )
+        pos = np.searchsorted(ikey_s, okey)
+        posc = np.clip(pos, 0, n - 1)
+        origin_row = np.where(
+            (okey >= 0) & (ikey_s[posc] == okey), posc, -1
+        )
+        is_map_row = uniq_valid & (kid_s >= 0)
+
+        # compact sequence block: seq rows ascending (= id rank ascending),
+        # same-segment origins resolved to compact positions
+        seq_rows = np.flatnonzero(uniq_valid & (kid_s < 0))
+        n_seq = len(seq_rows)
+        if n_seq:
+            o_rows = origin_row[seq_rows]
+            o_seg = seg[np.clip(o_rows, 0, n - 1)]
+            same_seg = (o_rows >= 0) & (o_seg == seg[seq_rows])
+            cpos = np.searchsorted(seq_rows, np.clip(o_rows, 0, None))
+            cposc = np.clip(cpos, 0, n_seq - 1)
+            c_parent = np.where(
+                same_seg & (seq_rows[cposc] == o_rows), cposc, -1
+            )
+        else:
+            c_parent = np.empty(0, np.int64)
 
     # right-origin attachment ordering (mid-inserts/prepends): groups
     # with in-group anchors get their exact conflict-scan ranks
@@ -1070,11 +1081,12 @@ def _stage(cols: Dict[str, np.ndarray],
     hard_rep_rows: list = []
     hard_seg_ids: list = []
     if "right_client" in cols:
-        client_s, hard_rep_rows, _, hard_seg_ids = _stage_rights(
-            cols, order, ikey_s, uniq, seg, origin_row, oc_s, seq_rows,
-            uniq_valid, kid_s, client_s.copy(), client[order],
-            clock[order],
-        )
+        with tracer.span("pack.rights"):
+            client_s, hard_rep_rows, _, hard_seg_ids = _stage_rights(
+                cols, order, ikey_s, uniq, seg, origin_row, oc_s, seq_rows,
+                uniq_valid, kid_s, client_s.copy(), client[order],
+                clock[order],
+            )
 
     # subtree split (rounds 13 + 23): re-cut oversized sequence
     # segments at DFS-suffix subtree granularity — branching trees
@@ -1091,23 +1103,24 @@ def _stage(cols: Dict[str, np.ndarray],
     n_seq_cuts = n_map_cuts = 0
     w_split = chain_split_width()
     if w_split and (n_seq or n_map):
-        rr_all = (np.asarray(cols["right_client"], np.int64)[order]
-                  if "right_client" in cols
-                  else np.full(n, -1, np.int64))
-        split = _subtree_split(
-            seg, seq_rows, c_parent, client_s, w_split,
-            hard_seg_ids, map_rows, origin_row, rr_all,
-        )
-        if split is not None and len(split[3]) < _SEQ_FLAG:
-            (seg, c_parent, seam_compact, synth_orig, win_src,
-             n_seq_cuts, n_map_cuts) = split
-            n_segs = len(synth_orig)
-            if n_seq:
-                bc2 = np.bincount(seg[seq_rows], minlength=1)
-                max_seq = int(bc2.max())
-            if n_map:
-                bcm = np.bincount(seg[map_rows], minlength=1)
-                max_map = int(bcm.max())
+        with tracer.span("pack.split"):
+            rr_all = (np.asarray(cols["right_client"], np.int64)[order]
+                      if "right_client" in cols
+                      else np.full(n, -1, np.int64))
+            split = _subtree_split(
+                seg, seq_rows, c_parent, client_s, w_split,
+                hard_seg_ids, map_rows, origin_row, rr_all,
+            )
+            if split is not None and len(split[3]) < _SEQ_FLAG:
+                (seg, c_parent, seam_compact, synth_orig, win_src,
+                 n_seq_cuts, n_map_cuts) = split
+                n_segs = len(synth_orig)
+                if n_seq:
+                    bc2 = np.bincount(seg[seq_rows], minlength=1)
+                    max_seq = int(bc2.max())
+                if n_map:
+                    bcm = np.bincount(seg[map_rows], minlength=1)
+                    max_map = int(bcm.max())
 
     # size buckets early: eager shipping needs the padded widths now,
     # and the int32-index guard must run BEFORE the first put — an
@@ -1145,10 +1158,11 @@ def _stage(cols: Dict[str, np.ndarray],
     w_all: dict = {}
     shipped = 0
     if put is not None:
-        f0, enc0, w0 = _encode_sections(g0, wide)
-        w_all.update(w0)
-        shipped += f0.nbytes
-        d0 = put(f0)
+        with tracer.span("pack.encode"):
+            f0, enc0, w0 = _encode_sections(g0, wide)
+            w_all.update(w0)
+            shipped += f0.nbytes
+            d0 = put(f0)
 
     # group 2 sections: the map block, grouped by chain parent. One
     # stable host radix pass puts every node's children in one
@@ -1159,43 +1173,44 @@ def _stage(cols: Dict[str, np.ndarray],
     # POST-split segment column: a split map chain's pieces parent
     # within their own synthetic segment only, so the same-segment
     # test below cuts each piece's chain at its seam for free
-    map_key = np.full(M, -1, np.int64)
-    chain_end = np.full(M, -1, np.int64)
-    root_end = np.full(Sb, -1, np.int64)
-    if n_map:
-        o = origin_row[map_rows]
-        o_c = np.clip(o, 0, n - 1)
-        # same-segment origin => chain parent; anything else (missing,
-        # cross-segment, a sequence row) roots the chain — the GC'd
-        # -origin convention shared with lww.map_winners
-        same = (o >= 0) & (seg[o_c] == seg[map_rows])
-        cm_par = np.where(same, np.searchsorted(map_rows, o_c), -1)
-        pslot = np.where(cm_par >= 0, cm_par, M + seg[map_rows])
-        gorder = np.argsort(pslot, kind="stable")
-        ps = pslot[gorder]
-        newrun = np.r_[True, ps[1:] != ps[:-1]]
-        ends = np.r_[np.flatnonzero(ps[1:] != ps[:-1]), n_map - 1]
-        run_key = ps[ends]
-        inv_g = np.empty(n_map, np.int64)
-        inv_g[gorder] = np.arange(n_map)
-        item_run = run_key < M
-        # chain_end is indexed by the PARENT's grouped position — the
-        # node space the device's last-child doubling runs in
-        chain_end[inv_g[run_key[item_run]]] = ends[item_run]
-        root_end[run_key[~item_run] - M] = ends[~item_run]
-        # dense client rank with the run-start flag folded into bit 0
-        # (one section instead of two; clients past 2^14 ranks spill
-        # the section to hi/lo, never a wrong decode)
-        map_key[:n_map] = (client_s[map_rows[gorder]] << 1) | newrun
-    else:
-        gorder = np.empty(0, np.int64)
-    g2 = [("map_key", map_key), ("map_chain_end", chain_end),
-          ("map_root_end", root_end)]
-    if put is not None:
-        f2, enc2, w2 = _encode_sections(g2, wide)
-        w_all.update(w2)
-        shipped += f2.nbytes
-        d2 = put(f2)
+    with tracer.span("pack.maps"):
+        map_key = np.full(M, -1, np.int64)
+        chain_end = np.full(M, -1, np.int64)
+        root_end = np.full(Sb, -1, np.int64)
+        if n_map:
+            o = origin_row[map_rows]
+            o_c = np.clip(o, 0, n - 1)
+            # same-segment origin => chain parent; anything else (missing,
+            # cross-segment, a sequence row) roots the chain — the GC'd
+            # -origin convention shared with lww.map_winners
+            same = (o >= 0) & (seg[o_c] == seg[map_rows])
+            cm_par = np.where(same, np.searchsorted(map_rows, o_c), -1)
+            pslot = np.where(cm_par >= 0, cm_par, M + seg[map_rows])
+            gorder = np.argsort(pslot, kind="stable")
+            ps = pslot[gorder]
+            newrun = np.r_[True, ps[1:] != ps[:-1]]
+            ends = np.r_[np.flatnonzero(ps[1:] != ps[:-1]), n_map - 1]
+            run_key = ps[ends]
+            inv_g = np.empty(n_map, np.int64)
+            inv_g[gorder] = np.arange(n_map)
+            item_run = run_key < M
+            # chain_end is indexed by the PARENT's grouped position — the
+            # node space the device's last-child doubling runs in
+            chain_end[inv_g[run_key[item_run]]] = ends[item_run]
+            root_end[run_key[~item_run] - M] = ends[~item_run]
+            # dense client rank with the run-start flag folded into bit 0
+            # (one section instead of two; clients past 2^14 ranks spill
+            # the section to hi/lo, never a wrong decode)
+            map_key[:n_map] = (client_s[map_rows[gorder]] << 1) | newrun
+        else:
+            gorder = np.empty(0, np.int64)
+        g2 = [("map_key", map_key), ("map_chain_end", chain_end),
+              ("map_root_end", root_end)]
+        if put is not None:
+            f2, enc2, w2 = _encode_sections(g2, wide)
+            w_all.update(w2)
+            shipped += f2.nbytes
+            d2 = put(f2)
 
     # group 1 sections (after the rank overwrites): the sequence
     # forest's sibling tables. ONE host lexsort by (parent, client,
@@ -1203,25 +1218,27 @@ def _stage(cols: Dict[str, np.ndarray],
     # next-sibling / first-child tables fall out of the same pass, so
     # the device's B-width sibling argsort + run-edge searchsorted
     # disappear from the dispatch entirely
-    nxt = np.full(B, -1, np.int64)
-    fc = np.full(B + Sb, -1, np.int64)
-    if n_seq:
-        cl_q = client_s[seq_rows]
-        posd = (n - 1) - seq_rows  # clock desc within (parent, client)
-        pslot2 = np.where(c_parent >= 0, c_parent, B + seg[seq_rows])
-        sord2 = np.lexsort((posd, cl_q, pslot2))
-        ps2 = pslot2[sord2]
-        same2 = ps2[1:] == ps2[:-1]
-        nxt[sord2[:-1][same2]] = sord2[1:][same2]
-        starts = np.r_[0, np.flatnonzero(~same2) + 1]
-        fc[ps2[starts]] = sord2[starts]
-    g1 = [("seq_next", nxt), ("seq_first", fc)]
+    with tracer.span("pack.siblings"):
+        nxt = np.full(B, -1, np.int64)
+        fc = np.full(B + Sb, -1, np.int64)
+        if n_seq:
+            cl_q = client_s[seq_rows]
+            posd = (n - 1) - seq_rows  # clock desc within (parent, client)
+            pslot2 = np.where(c_parent >= 0, c_parent, B + seg[seq_rows])
+            sord2 = np.lexsort((posd, cl_q, pslot2))
+            ps2 = pslot2[sord2]
+            same2 = ps2[1:] == ps2[:-1]
+            nxt[sord2[:-1][same2]] = sord2[1:][same2]
+            starts = np.r_[0, np.flatnonzero(~same2) + 1]
+            fc[ps2[starts]] = sord2[starts]
+        g1 = [("seq_next", nxt), ("seq_first", fc)]
+        if put is not None:
+            f1, enc1, w1 = _encode_sections(g1, wide)
+            w_all.update(w1)
+            shipped += f1.nbytes
+            d1 = put(f1)
 
     if put is not None:
-        f1, enc1, w1 = _encode_sections(g1, wide)
-        w_all.update(w1)
-        shipped += f1.nbytes
-        d1 = put(f1)
         mat = None
         dev = (d0, d1, d2)
         encs = enc0 + enc1 + enc2
@@ -1238,7 +1255,8 @@ def _stage(cols: Dict[str, np.ndarray],
             _sections.extend(named)
             mat, encs, w_all = None, (), {}
         else:
-            mat, encs, w_all = _encode_sections(named, wide)
+            with tracer.span("pack.encode"):
+                mat, encs, w_all = _encode_sections(named, wide)
         dev = ()
         # NOT recorded here: a matrix plan may never cross the link
         # (converge_host, make_repeat_dispatch) — the width/savings
@@ -1260,7 +1278,6 @@ def _stage(cols: Dict[str, np.ndarray],
 
     rank_rounds_v = _even_up((max_seq + 2).bit_length() + 1)
     map_rounds_v = _even_up((max_map + 2).bit_length() + 1)
-    tracer = get_tracer()
     if tracer.enabled:
         # the doubling-rounds bounds this plan's dispatch will run —
         # the subtree-split lever's regression evidence (lower =
