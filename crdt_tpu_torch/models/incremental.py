@@ -76,7 +76,7 @@ from crdt_tpu_torch.core.ids import DeleteSet, StateVector
 from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_ANY, K_GC, K_TYPE, TYPE_MAP
 from crdt_tpu_torch.guard.device import dispatch_guarded
-from crdt_tpu_torch.models.replay import rows_visible
+from crdt_tpu_torch.models.replay import ds_arrays, rows_visible
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed as pk
 from crdt_tpu_torch.ops.device import (
@@ -2224,12 +2224,7 @@ class IncrementalReplay:
         """Packed (client, start, end) arrays over the accumulated
         delete set — O(ranges), rebuilt only after a ds mutation."""
         if self._ds_pack is None:
-            trip = list(self.ds.iter_all())
-            self._ds_pack = (
-                np.asarray([c for c, _, _ in trip], np.int64),
-                np.asarray([s for _, s, _ in trip], np.int64),
-                np.asarray([s + n for _, s, n in trip], np.int64),
-            )
+            self._ds_pack = ds_arrays(self.ds)
         return self._ds_pack
 
     def _visible(self, rows: List[int]) -> List[bool]:

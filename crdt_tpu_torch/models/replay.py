@@ -45,6 +45,7 @@ tests/test_torch_streaming.py, tests/test_torch_resident.py).
 from __future__ import annotations
 
 from functools import partial
+from itertools import chain, compress
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -404,22 +405,29 @@ def rows_visible(
     """Vectorized tombstone test against delete RANGES — never
     expanded ids: a few delete-set bytes can legitimately declare
     ranges covering a whole GC'd history, so membership is an interval
-    search. Ranges
-    must be DISJOINT and sorted per client (DeleteSet.normalize's
-    invariant). Clients remap densely before packing; the 41-bit clock
-    field keeps the exclusive range end (up to the 1<<40 wire bound)
-    out of the client bits."""
+    search. Ranges must be DISJOINT and sorted per client
+    (DeleteSet.normalize's invariant). Each id packs into one int64,
+    the client above just enough bits for the largest clock or range
+    end; clients too wide for that (or negative) first remap densely
+    onto the delete set's clients, and a row of any other client
+    packs below every range."""
     if not len(del_c):
         return np.ones(len(row_client), bool)
     row_client = np.asarray(row_client, np.int64)
+    row_clock = np.asarray(row_clock, np.int64)
     del_c = np.asarray(del_c, np.int64)
-    uniq = np.unique(np.concatenate([row_client, del_c]))
-    qk = (
-        np.searchsorted(uniq, row_client).astype(np.int64) << 41
-    ) | np.asarray(row_clock, np.int64)
-    dc = np.searchsorted(uniq, del_c).astype(np.int64) << 41
-    starts = dc | np.asarray(del_s, np.int64)
-    ends = dc | np.asarray(del_e, np.int64)
+    del_e = np.asarray(del_e, np.int64)
+    shift = max(int(row_clock.max(initial=0)), int(del_e.max())).bit_length()
+    lo = min(int(row_client.min(initial=0)), int(del_c.min()))
+    hi = max(int(row_client.max(initial=0)), int(del_c.max()))
+    if lo < 0 or hi.bit_length() + shift > 63:
+        uniq = np.unique(del_c)
+        rank = np.minimum(np.searchsorted(uniq, row_client), len(uniq) - 1)
+        row_client = np.where(uniq[rank] == row_client, rank, -1)
+        del_c = np.searchsorted(uniq, del_c).astype(np.int64)
+    qk = (row_client << shift) | row_clock
+    starts = (del_c << shift) | np.asarray(del_s, np.int64)
+    ends = (del_c << shift) | del_e
     order = np.argsort(starts)
     starts, ends = starts[order], ends[order]
     pos = np.searchsorted(starts, qk, side="right") - 1
@@ -427,18 +435,31 @@ def rows_visible(
     return ~((pos >= 0) & (qk < ends[posc]))
 
 
-def visible_mask(dec: Dict, rows: List[int], ds: DeleteSet) -> List[bool]:
-    """Tombstone visibility for specific rows (vectorized)."""
-    if not rows:
-        return []
-    idx = np.asarray(rows)
-    trip = list(ds.iter_all())  # normalized: disjoint, client-sorted
-    del_c = np.asarray([c for c, _, _ in trip], np.int64)
-    del_s = np.asarray([s for _, s, _ in trip], np.int64)
-    del_e = np.asarray([s + n for _, s, n in trip], np.int64)
-    return list(rows_visible(
-        dec["client"][idx], dec["clock"][idx], del_c, del_s, del_e
-    ))
+def ds_arrays(ds: DeleteSet) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The delete set's normalized ranges as ``(client, start, end)``
+    int64 arrays, clients sorted, built from one flat list of bounds
+    (no tuple a range)."""
+    ds.normalize()
+    clients = sorted(ds.ranges)
+    bounds = np.array(list(chain.from_iterable(
+        chain.from_iterable(ds.ranges[c] for c in clients))), np.int64)
+    del_c = np.repeat(np.asarray(clients, np.int64),
+                      [len(ds.ranges[c]) for c in clients])
+    return del_c, bounds[0::2], bounds[1::2]
+
+
+def visible_mask(dec: Dict, rows, ds: DeleteSet) -> np.ndarray:
+    """Tombstone visibility for specific rows, as a bool array: one
+    interval search, or below ``SMALL_ROWS`` rows the delete set's own
+    lookup a row."""
+    idx = np.asarray(rows, np.int64)
+    if len(idx) >= SMALL_ROWS:
+        return rows_visible(dec["client"][idx], dec["clock"][idx],
+                            *ds_arrays(ds))
+    if not any(ds.ranges.values()):
+        return np.ones(len(idx), bool)
+    return np.array([not ds.contains(c, k) for c, k in zip(
+        dec["client"][idx].tolist(), dec["clock"][idx].tolist())], bool)
 
 
 def materialize(dec: Dict, ds: DeleteSet, win_rows, win_vis,
@@ -464,52 +485,140 @@ def assemble_cache(dec: Dict, ds: DeleteSet, win_rows, win_vis,
         return _assemble_cache(dec, ds, win_rows, win_vis, seq_orders)
 
 
+# Below this many rows a per-row Python pass beats the array pass, whose
+# numpy calls cost a fixed 25-50 us (PERF.md §6: at 10 rows the
+# array pass took 48 us against 24 on a map, 124 against 72 on a list;
+# the two cross at 40-80 rows).
+SMALL_ROWS = 64
+
+
+def _prefix(counts) -> np.ndarray:
+    """Exclusive prefix sums: ``out[j] - out[i]`` counts ``[i, j)``."""
+    out = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=out[1:])
+    return out
+
+
+def _group_winners(dec: Dict, rows: np.ndarray):
+    """Visible map winners grouped by parent through one integer key
+    (the root index, or past the roots the rank of the ``(client,
+    clock)`` parent id) and one stable argsort. Returns the rows in
+    group order and ``{parent spec: (start, end)}`` into them, groups
+    in order of first appearance, rows in their order within each."""
+    if not len(rows):
+        return rows, {}
+    key = dec["parent_root"][rows].astype(np.int64)
+    item = np.flatnonzero(key < 0)
+    if len(item):
+        pc = dec["parent_client"][rows[item]]
+        pk = dec["parent_clock"][rows[item]]
+        o = np.lexsort((pk, pc))
+        pc, pk = pc[o], pk[o]
+        new = np.ones(len(o), np.int64)
+        new[1:] = (pc[1:] != pc[:-1]) | (pk[1:] != pk[:-1])
+        key[item[o]] = len(dec["roots"]) + np.cumsum(new) - 1
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    cuts = np.flatnonzero(ks[1:] != ks[:-1]) + 1
+    starts = np.concatenate(([0], cuts)).tolist()
+    ends = cuts.tolist() + [len(ks)]
+    grouped = rows[order]
+    first = order[starts]  # each group's first row in input order
+    spans = {}
+    for g in np.argsort(first).tolist():
+        a, b = starts[g], ends[g]
+        spans[parent_spec(dec, int(grouped[a]))] = (a, b)
+    return grouped, spans
+
+
+def _map_groups(dec: Dict, win_rows, win_vis, small: bool) -> Dict:
+    """``{parent spec: (key names, rows, type rows among them)}`` of the
+    visible map winners, groups in order of first appearance and rows
+    in their order within each (the cache's key order). A small input
+    leaves the type rows uncounted (None): its values are built row by
+    row."""
+    keys, kid, kind = dec["keys"], dec["key_id"], dec["kind"]
+    if small:
+        groups: Dict[Tuple, Tuple[List[str], List[int], None]] = {}
+        for r, ok in zip(win_rows, win_vis):
+            if ok:
+                spec = parent_spec(dec, r)
+                group = groups.get(spec)
+                if group is None:
+                    group = groups[spec] = ([], [], None)
+                group[0].append(keys[kid[r]])
+                group[1].append(r)
+        return groups
+    win = np.asarray(win_rows, np.int64)[np.asarray(win_vis, bool)]
+    grouped, spans = _group_winners(dec, win)
+    # key names by one take from an object array of the (few) keys
+    names = np.empty(len(keys), object)
+    names[:] = keys
+    names = names[kid[grouped]]
+    types = _prefix(kind[grouped] == K_TYPE)
+    return {spec: (names[a:b].tolist(), grouped[a:b].tolist(),
+                   int(types[b] - types[a]))
+            for spec, (a, b) in spans.items()}
+
+
+def _seq_streams(dec: Dict, ds: DeleteSet, seq_orders,
+                 small: bool) -> Dict:
+    """``{parent spec: (visible rows, type rows among them)}`` of the
+    doc-order streams, from one visibility pass over all of them (type
+    rows uncounted, None, for a small input)."""
+    kind = dec["kind"]
+    if small:
+        flat = [r for rows in seq_orders.values() for r in rows]
+        vis = dict(zip(flat, visible_mask(dec, flat, ds).tolist()))
+        return {spec: ([r for r in rows if vis[r]], None)
+                for spec, rows in seq_orders.items()}
+    lens = [len(rows) for rows in seq_orders.values()]
+    flat = np.fromiter(chain.from_iterable(seq_orders.values()), np.int64,
+                       sum(lens))
+    vis = visible_mask(dec, flat, ds)
+    bound = _prefix(lens).tolist()
+    types = _prefix((kind[flat] == K_TYPE) & vis)
+    keep = vis.tolist()
+    # filter each stream's own row list: no int object made a row
+    return {spec: (list(compress(rows, keep[a:b])),
+                   int(types[b] - types[a]))
+            for (spec, rows), a, b in zip(seq_orders.items(), bound[:-1],
+                                         bound[1:])}
+
+
 def _assemble_cache(dec: Dict, ds: DeleteSet, win_rows, win_vis,
                     seq_orders) -> Tuple[dict, Dict[str, int]]:
-    keys = dec["keys"]
-    kid = dec["key_id"]
     client, clock = dec["client"], dec["clock"]
     kind_col, tref = dec["kind"], dec["type_ref"]
     contents = dec["contents"]
+    small = (len(win_rows) + sum(len(rows) for rows in seq_orders.values())
+             < SMALL_ROWS)
+    map_groups = _map_groups(dec, win_rows, win_vis, small)
+    streams = _seq_streams(dec, ds, seq_orders, small) if seq_orders else {}
 
-    # vectorized tombstone test for every sequence row at once (the
-    # per-row ds.contains walk was ~half of materialize at 100k ops)
-    all_seq_rows = sorted(
-        {int(r) for rows in seq_orders.values() for r in rows}
-    )
-    seq_vis = dict(
-        zip(all_seq_rows, visible_mask(dec, all_seq_rows, ds))
-    )
+    built = [0, 0]  # values built by one comprehension, and row by row
 
-    # visible map winners grouped by their parent spec
-    map_groups: Dict[Tuple, Dict[str, int]] = {}
-    for row, vis in zip(win_rows, win_vis):
-        if not vis:
-            continue
-        map_groups.setdefault(parent_spec(dec, row), {})[
-            keys[kid[row]]
-        ] = row
+    def values(rows: List[int], n_types: Optional[int], depth: int) -> list:
+        if n_types == 0:
+            built[0] += len(rows)
+            return [contents[r] for r in rows]
+        built[1] += len(rows)
+        return [value_of(r, depth) for r in rows]
 
     def value_of(row: int, depth: int):
         if kind_col[row] == K_TYPE:
             spec = ("item", int(client[row]), int(clock[row]))
-            is_map = tref[row] == TYPE_MAP
-            return collection(spec, is_map, depth + 1)
+            return collection(spec, tref[row] == TYPE_MAP, depth + 1)
         return contents[row]
 
     def collection(spec: Tuple, is_map: bool, depth: int):
         if depth > 64:
             return None  # malformed cyclic nesting: cut, don't recurse
         if is_map:
-            return {
-                k: value_of(r, depth)
-                for k, r in map_groups.get(spec, {}).items()
-            }
-        return [
-            value_of(r, depth)
-            for r in seq_orders.get(spec, ())
-            if seq_vis[int(r)]
-        ]
+            names, rows, n_types = map_groups.get(spec, ((), (), 0))
+            return dict(zip(names, values(rows, n_types, depth)))
+        rows, n_types = streams.get(spec, ((), 0))
+        return values(rows, n_types, depth)
 
     cache: dict = {}
     for spec in map_groups:
@@ -520,7 +629,13 @@ def _assemble_cache(dec: Dict, ds: DeleteSet, win_rows, win_vis,
     for spec in seq_orders:
         if spec[0] == "root" and spec[1] not in cache:
             cache[spec[1]] = collection(spec, False, 0)
-    return cache, map_groups.get(("root", "ix"), {})
+    names, rows, _ = map_groups.get(("root", "ix"), ((), (), 0))
+    tracer = get_tracer()
+    if tracer.enabled:
+        for path, n in zip(("flat", "nested"), built):
+            if n:
+                tracer.count("materialize.rows", n, labels={"path": path})
+    return cache, dict(zip(names, rows))
 
 
 def finish_cache(cache: dict, dec: Dict,
