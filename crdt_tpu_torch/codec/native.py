@@ -165,6 +165,13 @@ def decoded_to_records(
     """Reconstruct symbolic records (parent-resolved) — the bridge to
     the scalar engine and the differential tests. ``rows`` restricts
     the output to a row subset (full delete set either way)."""
+    return records_of(dec, rows), ds_from_triples(dec["ds"])
+
+
+def records_of(dec: Dict, rows: Optional[Sequence[int]] = None
+               ) -> List[ItemRecord]:
+    """:func:`decoded_to_records`' records alone, without the delete
+    set."""
     roots, keys = dec["roots"], dec["keys"]
     out: List[ItemRecord] = []
     n = len(dec["client"])
@@ -191,7 +198,7 @@ def decoded_to_records(
             type_ref=int(tref[i]),
             content=contents[i],
         ))
-    return out, ds_from_triples(dec["ds"])
+    return out
 
 
 

@@ -192,8 +192,10 @@ def gather(dec: Dict, ds: DeleteSet, handle, *, device):
         win_rows, seq_orders = _assemble_packed(dec, handle[1])
         hard = handle[1].hard_rows
         if hard:
-            affected = {parent_spec(dec, int(r)) for r in hard}
-            seq_orders.update(_host_seq_orders(dec, affected, device=device))
+            with get_tracer().span("gather.hard"):
+                affected = {parent_spec(dec, int(r)) for r in hard}
+                seq_orders.update(_host_seq_orders(dec, affected,
+                                                   device=device))
         return finish_assembly(dec, ds, win_rows, seq_orders,
                                device=device, blanket_rights=False)
 
@@ -296,33 +298,43 @@ def _host_seq_orders(dec: Dict, specs_needed: set, *, device):
     joins as a GC stub — the ordering machinery then drops/hardens
     those references exactly as it would with the whole union in hand,
     while truly dangling references stay absent (members pend). The
-    ranking runs on ``device``."""
-    kid_col, kind_col = dec["key_id"], dec["kind"]
-    n = len(kid_col)
-    rows = [
-        i for i in range(n)
-        if kid_col[i] < 0 and kind_col[i] != K_GC
-        and parent_spec(dec, i) in specs_needed
-    ]
-    records, _ = native.decoded_to_records(dec, rows)
+    ranking runs on ``device``. The subset's rows, its stubs and the
+    rows of the ordered ids are found by array passes over the union,
+    so only the subset's own rows cost Python work."""
+    pr = dec["parent_root"]
+    names = {spec[1] for spec in specs_needed if spec[0] == "root"}
+    hit = np.isin(pr, [i for i, name in enumerate(dec["roots"])
+                       if name in names])
+    items = np.asarray([spec[1:] for spec in specs_needed
+                        if spec[0] == "item"], np.int64).reshape(-1, 2)
+    if len(items):
+        pc, pk = dec["parent_client"], dec["parent_clock"]
+        in_item = native.id_lookup(native.id_index(items[:, 0], items[:, 1]),
+                                   pc, pk) >= 0
+        if ((items[:, 0] < 0) & (items[:, 1] < 0)).any():
+            in_item |= (pc < 0) & (pk < 0)  # ("item", -1, -1): no parent
+        hit |= (pr < 0) & in_item
+    rows = np.flatnonzero(hit & (dec["key_id"] < 0) & (dec["kind"] != K_GC))
+    records = native.records_of(dec, rows)
     sub_ids = {r.id for r in records}
-    id_row = {
-        (int(dec["client"][i]), int(dec["clock"][i])): i for i in range(n)
-    }
-    stubs = {
+    refs = list({
         ref
         for r in records
         for ref in (r.origin, r.right)
-        if ref is not None and ref not in sub_ids and ref in id_row
-    }
-    records += [
-        ItemRecord(client=c, clock=k, kind=K_GC) for c, k in stubs
-    ]
-    return {
-        spec: [id_row[i] for i in ids]
-        for spec, ids in order_sequences(records, device=device).items()
-        if spec in specs_needed
-    }
+        if ref is not None and ref not in sub_ids
+    })
+    index = native.id_index(dec["client"], dec["clock"])
+    if refs:
+        rc, rk = np.asarray(refs, np.int64).T
+        present = native.id_lookup(index, rc, rk) >= 0
+        records += [ItemRecord(client=int(c), clock=int(k), kind=K_GC)
+                    for c, k in zip(rc[present], rk[present])]
+    out = {}
+    for spec, ids in order_sequences(records, device=device).items():
+        if spec in specs_needed:
+            c, k = np.asarray(ids, np.int64).reshape(-1, 2).T
+            out[spec] = native.id_lookup(index, c, k).tolist()
+    return out
 
 
 def _fix_map_chains_with_rights(dec: Dict, win_rows, bad_rows=None,

@@ -347,6 +347,12 @@ def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,
     other right-bearing segment has its conflict-scan ranks baked
     into the client column by the time the split runs, so the
     sibling comparator (and any DFS-suffix cut of it) stays exact.
+
+    With the tracer on, the group loop is the span ``pack.rights.scan``
+    and the pass counts ``rights.rows`` (right-bearing sequence rows),
+    ``rights.groups`` (origin groups holding one), ``rights.scanned_groups``
+    (those replayed through the conflict scan), ``rights.hard_segments``
+    and ``rights.hard_rows`` (the right-bearing rows of hard segments).
     """
     n = len(client_s)
     rr = np.asarray(cols["right_client"], np.int64)[order]
@@ -377,109 +383,190 @@ def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,
         int(ss[a]): sr[a:b] for a, b in zip(seg_cuts[:-1], seg_cuts[1:])
     }
 
+    walk_of = np.full(n, -1, np.int8)
+    walk_of[rows_r] = _right_walks(rows_r, right_row, origin_row, seg,
+                                   seq_rows)
+    tracer = get_tracer()
     hard_reps: list = []
     hard_segs: list = []
     max_rank = 0
+    n_groups = n_scanned = 0
     # accumulated conflict-scan ranks, written with ONE bulk
     # searchsorted at the end (a per-sid binary search dominated text
     # staging time — profiled round 4)
     rank_sids: list = []
     rank_vals: list = []
-    for S in np.unique(seg[rows_r]).tolist():
-        members = seg_slices.get(int(S))
-        if members is None:
-            continue
-        # orphan member (declared origin that resolved nowhere):
-        # vectorized — member loops in python made staging the text
-        # replay's dominant cost
-        if bool(np.any((oc_s[members] >= 0) & (origin_row[members] < 0))):
-            hard_reps.append(int(order[int(members[0])]))
-            hard_segs.append(int(S))
-            continue
-        # groups within the segment, keyed by in-union origin row:
-        # one stable sort + run split instead of a python setdefault
-        # walk over every member
-        og = origin_row[members]
-        gorder = np.argsort(og, kind="stable")
-        og_s, mem_s = og[gorder], members[gorder]
-        gcuts = np.r_[
-            0, np.flatnonzero(og_s[1:] != og_s[:-1]) + 1, len(og_s)
-        ]
-        hard = False
-        # shared walk budget for ALL of this segment's out-of-group
-        # right walks: linear in segment size (hostile staging cost
-        # stays O(n) total — advisor finding, round 3), generous for
-        # benign shapes; exhaustion marks the segment hard, which the
-        # exact scalar fallback absorbs
-        walk_budget = max(_RIGHT_WALK_CAP, 8 * len(members))
-        seg_rank_sids: list = []
-        seg_rank_vals: list = []
-        seg_max_rank = 0
-        for a, b in zip(gcuts[:-1], gcuts[1:]):
-            grows = mem_s[a:b]
-            # only right-bearing members need the per-row checks
-            gr = grows[rr[grows] >= 0]
-            if not len(gr):
+    with tracer.span("pack.rights.scan"):
+        for S in np.unique(seg[rows_r]).tolist():
+            members = seg_slices.get(int(S))
+            if members is None:
                 continue
-            grow_set = set(grows.tolist())
-            has_anchor = False
-            # one fused python pass (groups are tiny — typically the
-            # few writers racing one position — so per-group numpy
-            # reductions cost more than they save)
-            for rt in right_row[gr].tolist():
-                if rt < 0 or seg[rt] != S:
-                    hard = True  # dangling/unknown or cross-parent
-                    break
-                if rt in grow_set:
-                    has_anchor = True  # in-group anchor: simulated
+            # orphan member (declared origin that resolved nowhere):
+            # vectorized — member loops in python made staging the text
+            # replay's dominant cost
+            if bool(np.any((oc_s[members] >= 0)
+                           & (origin_row[members] < 0))):
+                hard_reps.append(int(order[int(members[0])]))
+                hard_segs.append(int(S))
+                continue
+            # groups within the segment, keyed by in-union origin row:
+            # one stable sort + run split instead of a python setdefault
+            # walk over every member
+            og = origin_row[members]
+            gorder = np.argsort(og, kind="stable")
+            og_s, mem_s = og[gorder], members[gorder]
+            gcuts = np.r_[
+                0, np.flatnonzero(og_s[1:] != og_s[:-1]) + 1, len(og_s)
+            ]
+            hard = False
+            # shared walk budget for ALL of this segment's out-of-group
+            # right walks: linear in segment size (hostile staging cost
+            # stays O(n) total — advisor finding, round 3), generous for
+            # benign shapes; exhaustion marks the segment hard, which the
+            # exact scalar fallback absorbs. Chains _right_walks answered
+            # (those within the segment) draw nothing from it
+            walk_budget = max(_RIGHT_WALK_CAP, 8 * len(members))
+            seg_rank_sids: list = []
+            seg_rank_vals: list = []
+            seg_max_rank = 0
+            for a, b in zip(gcuts[:-1], gcuts[1:]):
+                grows = mem_s[a:b]
+                # only right-bearing members need the per-row checks
+                gr = grows[rr[grows] >= 0]
+                if not len(gr):
                     continue
-                # out-of-group right: hard if its origin chain passes
-                # through a GROUP member (the scan would stop inside
-                # that member's subtree). Walks draw on the segment's
-                # shared linear budget (see above)
-                cur = rt
-                while cur >= 0:
-                    if cur in grow_set:
-                        hard = True
+                n_groups += 1
+                grow_set = set(grows.tolist())
+                has_anchor = False
+                # one fused python pass (groups are tiny — typically the
+                # few writers racing one position — so per-group numpy
+                # reductions cost more than they save)
+                for rt, walked in zip(right_row[gr].tolist(),
+                                      walk_of[gr].tolist()):
+                    if rt < 0 or seg[rt] != S:
+                        hard = True  # dangling/unknown or cross-parent
                         break
-                    walk_budget -= 1
-                    if walk_budget < 0:
-                        hard = True  # budget spent: exact fallback
+                    if rt in grow_set:
+                        has_anchor = True  # in-group anchor: simulated
+                        continue
+                    if walked >= 0:
+                        # answered by _right_walks without a walk
+                        if walked:
+                            hard = True
+                            break
+                        continue
+                    # out-of-group right: hard if its origin chain passes
+                    # through a GROUP member (the scan would stop inside
+                    # that member's subtree). Walks draw on the segment's
+                    # shared linear budget (see above)
+                    cur = rt
+                    while cur >= 0:
+                        if cur in grow_set:
+                            hard = True
+                            break
+                        walk_budget -= 1
+                        if walk_budget < 0:
+                            hard = True  # budget spent: exact fallback
+                            break
+                        cur = int(origin_row[cur])
+                    if hard:
                         break
-                    cur = int(origin_row[cur])
                 if hard:
                     break
+                if not has_anchor:
+                    continue  # attachment-free: plain keys are exact
+                glist = grows.tolist()
+                sibs = [
+                    {
+                        "id": int(ikey_s[r]),
+                        "client": int(client_raw_s[r]),
+                        "clock": int(clock_raw_s[r]),
+                        "right": int(rkey[r]) if rr[r] >= 0 else None,
+                    }
+                    for r in glist
+                ]
+                ordered = _simulate_group(
+                    sibs, {int(ikey_s[r]) for r in glist}
+                )
+                n_scanned += 1
+                seg_rank_sids.extend(ordered)
+                seg_rank_vals.extend(range(len(ordered)))
+                seg_max_rank = max(seg_max_rank, len(ordered) - 1)
             if hard:
-                break
-            if not has_anchor:
-                continue  # attachment-free: plain keys are exact
-            glist = grows.tolist()
-            sibs = [
-                {
-                    "id": int(ikey_s[r]),
-                    "client": int(client_raw_s[r]),
-                    "clock": int(clock_raw_s[r]),
-                    "right": int(rkey[r]) if rr[r] >= 0 else None,
-                }
-                for r in glist
-            ]
-            ordered = _simulate_group(
-                sibs, {int(ikey_s[r]) for r in glist}
-            )
-            seg_rank_sids.extend(ordered)
-            seg_rank_vals.extend(range(len(ordered)))
-            seg_max_rank = max(seg_max_rank, len(ordered) - 1)
-        if hard:
-            hard_reps.append(int(order[int(members[0])]))
-            hard_segs.append(int(S))
-            continue
-        rank_sids.extend(seg_rank_sids)
-        rank_vals.extend(seg_rank_vals)
-        max_rank = max(max_rank, seg_max_rank)
+                hard_reps.append(int(order[int(members[0])]))
+                hard_segs.append(int(S))
+                continue
+            rank_sids.extend(seg_rank_sids)
+            rank_vals.extend(seg_rank_vals)
+            max_rank = max(max_rank, seg_max_rank)
+    if tracer.enabled:
+        hard_rows = 0
+        if hard_segs:
+            hard_rows = int(np.isin(seg[rows_r], hard_segs).sum())
+        for name, v in (("rights.rows", len(rows_r)),
+                        ("rights.groups", n_groups),
+                        ("rights.scanned_groups", n_scanned),
+                        ("rights.hard_segments", len(hard_segs)),
+                        ("rights.hard_rows", hard_rows)):
+            tracer.count(name, v)
     if rank_sids:
         rows = np.searchsorted(ikey_s, np.asarray(rank_sids, np.int64))
         client_s[rows] = np.asarray(rank_vals, np.int64)
     return client_s, hard_reps, max_rank, hard_segs
+
+
+def _right_walks(rows_r, right_row, origin_row, seg, seq_rows):
+    """For each right-bearing row, whether the origin chain from its
+    right target (the target included) passes through a member of the
+    row's origin group, as :func:`_stage_rights`' walk asks: 1 yes,
+    0 no, -1 left to that walk (the target is in another segment, or
+    its chain leaves its segment's sequence rows or never ends).
+
+    On a chain that stays among one segment's sequence rows every node
+    is a member of that segment, so a member of the group (a node whose
+    origin is the row's) lies on it exactly where the row has no origin
+    (every chain ends at a root) or the row's origin is a strict
+    ancestor of the target. Doubling over the origin pointers gives
+    every row's depth and whether its chain stays so; a level-ancestor
+    climb by the depths' difference answers the rest. Linear in the
+    union a doubling round, so long benign chains (a list built by
+    pushes) cost no walk budget."""
+    n = len(seg)
+    out = np.full(len(rows_r), -1, np.int8)
+    rt = right_row[rows_r]
+    o = origin_row[rows_r]
+    ask = rt >= 0
+    ask[ask] = seg[rt[ask]] == seg[rows_r[ask]]
+    if not ask.any():
+        return out
+    par = np.append(np.where(origin_row >= 0, origin_row, n), n)
+    has_par = par[:n] < n
+    ok = np.zeros(n + 1, bool)
+    ok[seq_rows] = True
+    ok[n] = True
+    ok[:n] &= ~has_par | (seg[np.where(has_par, par[:n], 0)] == seg)
+    depth = np.append(has_par.astype(np.int64), 0)
+    nxt = par
+    for _ in range(n.bit_length() + 1):
+        if (nxt == n).all():
+            break
+        depth = depth + depth[nxt]
+        ok = ok & ok[nxt]
+        nxt = nxt[nxt]
+    ask &= ok[np.maximum(rt, 0)] & (nxt[np.maximum(rt, 0)] == n)
+    out[ask & (o < 0)] = 1
+    sel = np.flatnonzero(ask & (o >= 0))
+    q, want = rt[sel], o[sel]
+    need = depth[q] - depth[want]
+    up = par
+    k = 0
+    while (need >> k > 0).any():
+        step = (need > 0) & ((need >> k) & 1).astype(bool)
+        q = np.where(step, up[q], q)
+        up = up[up]
+        k += 1
+    out[sel] = (need > 0) & (q == want)
+    return out
 
 
 def dfs_suffix_boundaries(par_l, cl_l, posd_l, width: int,
