@@ -14,7 +14,9 @@ exposes the entry points the replays need:
 - :func:`merge_decoded` — per-chunk decodes merged into the one-pass
   union (the streaming executor's decode lane), with the packed-id row
   index :func:`id_index` / :func:`id_lookup` it shares with the
-  executor's partition climb.
+  executor's partition climb;
+- :func:`conflict_ranks` — staging's conflict-scan replay of every
+  right-origin group of a union in one call.
 
 When the toolchain is missing, :func:`available` is False and callers
 take the pure-Python codec instead, with its own
@@ -542,4 +544,24 @@ def encode_from_columns(dec: Dict, ds: Optional[DeleteSet] = None) -> bytes:
         list(dec["roots"]),
         list(dec["keys"]),
         triples,
+    )
+
+
+# ---------------------------------------------------------------------------
+# staging
+# ---------------------------------------------------------------------------
+
+
+def conflict_ranks(offsets, client, right, anchor) -> np.ndarray:
+    """Each member's rank under the Yjs conflict scan, for origin groups
+    laid out as CSR: group ``g`` is rows ``offsets[g]:offsets[g + 1]``,
+    sorted by (client, clock). ``right`` is the right origin's id key
+    (-1 for none) and ``anchor`` the in-group index of the member it
+    names (-1 for none). The order is
+    :func:`crdt_tpu_torch.ops.yata._simulate_group`'s, group by group."""
+    return _load().conflict_ranks(
+        np.ascontiguousarray(offsets, np.int64),
+        np.ascontiguousarray(client, np.int64),
+        np.ascontiguousarray(right, np.int64),
+        np.ascontiguousarray(anchor, np.int64),
     )

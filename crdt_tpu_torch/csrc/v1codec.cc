@@ -15,6 +15,10 @@
 //     same logical rows: clients descending, maximal runs, Skip structs
 //     for clock gaps, the exact lib0 `any` type dispatch.
 //
+//   conflict_ranks(offsets, client, right, anchor) -> numpy ranks
+//     staging's conflict-scan replay of right-origin groups, every
+//     group in one call; the same order as ops/yata.py:_simulate_group.
+//
 // The module is _v1codec_torch and takes its `undefined` sentinel from
 // crdt_tpu_torch.codec.lib0, so that a value decoded here is the one
 // the port's Python codec encodes (and the port imports no other
@@ -1174,12 +1178,106 @@ static PyObject* encode_update(PyObject*, PyObject* args) {
 }
 
 // ---------------------------------------------------------------------------
+// conflict_ranks (the Yjs conflict scan of ops/yata.py:_simulate_group)
+// ---------------------------------------------------------------------------
+
+// One origin group, members 0..k-1 in (client, clock) order: integrate
+// in causal rounds (a member whose anchor is an unplaced member waits;
+// one placed earlier in the same round counts as placed), scan the
+// placed list from its start for the insertion point, and append an
+// anchor cycle's members in order. Writes each member's final position.
+static void scan_group(int64_t k, const int64_t* cl, const int64_t* rt,
+                       const int64_t* anc, int64_t* rank) {
+  std::vector<int64_t> placed, rem(k), still;
+  std::vector<char> done(k, 0);
+  placed.reserve(k);
+  for (int64_t i = 0; i < k; i++) rem[i] = i;
+  while (!rem.empty()) {
+    bool progress = false;
+    still.clear();
+    for (int64_t s : rem) {
+      int64_t a = anc[s];
+      if (a >= 0 && !done[a]) {
+        still.push_back(s);
+        continue;
+      }
+      int64_t left = -1;
+      for (int64_t i = 0; i < (int64_t)placed.size(); i++) {
+        int64_t t = placed[i];
+        if (t == a) break;
+        if (cl[t] < cl[s]) left = i;
+        else if (cl[t] > cl[s] && rt[t] == rt[s]) break;
+      }
+      placed.insert(placed.begin() + (left + 1), s);
+      done[s] = 1;
+      progress = true;
+    }
+    if (!progress) {
+      for (int64_t s : still) placed.push_back(s);
+      still.clear();
+    }
+    rem.swap(still);
+  }
+  for (int64_t i = 0; i < k; i++) rank[placed[i]] = i;
+}
+
+// conflict_ranks(offsets, client, right, anchor) -> int64 ranks
+//   Groups laid out as CSR: group g is rows offsets[g]..offsets[g+1]-1,
+//   each sorted by (client, clock). right: the right origin's id key
+//   (-1 for none); anchor: the in-group index of the member the right
+//   origin names (-1 for none). Returns each row's rank in its group.
+static PyObject* conflict_ranks(PyObject*, PyObject* args) {
+  PyObject *offs, *client, *right, *anchor;
+  if (!PyArg_ParseTuple(args, "OOOO", &offs, &client, &right, &anchor))
+    return nullptr;
+  npy_intp ng1 = 0, m = 0, mr = 0, ma = 0;
+  const int64_t* off = i64_data(offs, "offsets", &ng1);
+  const int64_t* cl = i64_data(client, "client", &m);
+  const int64_t* rt = i64_data(right, "right", &mr);
+  const int64_t* anc = i64_data(anchor, "anchor", &ma);
+  if (!off || !cl || !rt || !anc) return nullptr;
+  if (ng1 < 1 || off[0] != 0 || off[ng1 - 1] != m || mr != m || ma != m) {
+    PyErr_SetString(PyExc_ValueError,
+                    "offsets must run from 0 to the row count, and "
+                    "client, right and anchor must share that length");
+    return nullptr;
+  }
+  for (npy_intp g = 0; g + 1 < ng1; g++) {
+    int64_t k = off[g + 1] - off[g];
+    if (k < 0) {
+      PyErr_SetString(PyExc_ValueError, "offsets must not decrease");
+      return nullptr;
+    }
+    for (int64_t i = off[g]; i < off[g + 1]; i++) {
+      if (anc[i] < -1 || anc[i] >= k) {
+        PyErr_SetString(PyExc_ValueError,
+                        "an anchor lies outside its group");
+        return nullptr;
+      }
+    }
+  }
+  npy_intp dims[1] = {m};
+  PyObject* out = PyArray_SimpleNew(1, dims, NPY_INT64);
+  if (!out) return nullptr;
+  int64_t* rank = (int64_t*)PyArray_DATA((PyArrayObject*)out);
+  Py_BEGIN_ALLOW_THREADS
+  for (npy_intp g = 0; g + 1 < ng1; g++) {
+    int64_t a = off[g];
+    scan_group(off[g + 1] - a, cl + a, rt + a, anc + a, rank + a);
+  }
+  Py_END_ALLOW_THREADS
+  return out;
+}
+
+// ---------------------------------------------------------------------------
 
 static PyMethodDef methods[] = {
     {"decode_updates", decode_updates, METH_VARARGS,
      "Decode a sequence of v1 update blobs into columnar arrays."},
     {"encode_update", encode_update, METH_VARARGS,
      "Encode columnar rows + delete set into one v1 update blob."},
+    {"conflict_ranks", conflict_ranks, METH_VARARGS,
+     "Replay the Yjs conflict scan over CSR origin groups."},
     {nullptr, nullptr, 0, nullptr},
 };
 

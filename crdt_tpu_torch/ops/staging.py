@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from crdt_tpu_torch.codec import native
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops.device import (
     NULLI,
@@ -338,7 +339,7 @@ def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,
     unresolved (orphan subtrees take the fallback's dropping rules),
     or any member's right is dangling/unknown, cross-segment, or
     inside another member's subtree (right_walk_is_hard). Groups with
-    in-group anchors replay the Yjs conflict scan (_simulate_group);
+    in-group anchors replay the Yjs conflict scan (:func:`_scan_ranks`);
     attachment-free groups keep the plain (client, clock-desc) key.
 
     Returns (client column, caller-space hard rows, max rank written,
@@ -348,11 +349,22 @@ def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,
     into the client column by the time the split runs, so the
     sibling comparator (and any DFS-suffix cut of it) stays exact.
 
-    With the tracer on, the group loop is the span ``pack.rights.scan``
-    and the pass counts ``rights.rows`` (right-bearing sequence rows),
-    ``rights.groups`` (origin groups holding one), ``rights.scanned_groups``
-    (those replayed through the conflict scan), ``rights.hard_segments``
-    and ``rights.hard_rows`` (the right-bearing rows of hard segments).
+    The group tests are array passes over all right-bearing rows at
+    once (:func:`_right_groups`); only rows whose right target's chain
+    :func:`_right_walks` could not answer take the budgeted walk, a
+    Python step each. The conflict scans of every group then run in
+    one call.
+
+    With the tracer on, everything after :func:`_right_walks` is the
+    span ``pack.rights.scan`` and the pass counts ``rights.rows``
+    (right-bearing sequence rows), ``rights.groups`` (origin groups
+    holding one, up to a segment's first hard group),
+    ``rights.scanned_groups`` (those with an in-group anchor before a
+    segment's first hard group), ``rights.hard_segments``,
+    ``rights.hard_rows`` (the right-bearing rows of hard segments),
+    ``rights.walked_rows`` (rows that took the budgeted walk) and
+    ``rights.scanned_rows{path}`` (members of the groups replayed, by
+    ``native`` or ``python``; hard segments' groups are not replayed).
     """
     n = len(client_s)
     rr = np.asarray(cols["right_client"], np.int64)[order]
@@ -374,145 +386,192 @@ def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,
     pos = np.clip(np.searchsorted(ikey_s, rkey), 0, n - 1)
     right_row = np.where((rkey >= 0) & (ikey_s[pos] == rkey), pos, -1)
 
-    # segment -> member rows (one stable sort over the seq rows)
-    seg_of_seq = seg[seq_rows]
-    so = np.argsort(seg_of_seq, kind="stable")
-    ss, sr = seg_of_seq[so], seq_rows[so]
-    seg_cuts = np.r_[0, np.flatnonzero(ss[1:] != ss[:-1]) + 1, len(ss)]
-    seg_slices = {
-        int(ss[a]): sr[a:b] for a, b in zip(seg_cuts[:-1], seg_cuts[1:])
-    }
-
-    walk_of = np.full(n, -1, np.int8)
-    walk_of[rows_r] = _right_walks(rows_r, right_row, origin_row, seg,
-                                   seq_rows)
+    walk_of = _right_walks(rows_r, right_row, origin_row, seg, seq_rows)
     tracer = get_tracer()
-    hard_reps: list = []
-    hard_segs: list = []
-    max_rank = 0
-    n_groups = n_scanned = 0
-    # accumulated conflict-scan ranks, written with ONE bulk
-    # searchsorted at the end (a per-sid binary search dominated text
-    # staging time — profiled round 4)
-    rank_sids: list = []
-    rank_vals: list = []
     with tracer.span("pack.rights.scan"):
-        for S in np.unique(seg[rows_r]).tolist():
-            members = seg_slices.get(int(S))
-            if members is None:
-                continue
-            # orphan member (declared origin that resolved nowhere):
-            # vectorized — member loops in python made staging the text
-            # replay's dominant cost
-            if bool(np.any((oc_s[members] >= 0)
-                           & (origin_row[members] < 0))):
-                hard_reps.append(int(order[int(members[0])]))
-                hard_segs.append(int(S))
-                continue
-            # groups within the segment, keyed by in-union origin row:
-            # one stable sort + run split instead of a python setdefault
-            # walk over every member
-            og = origin_row[members]
-            gorder = np.argsort(og, kind="stable")
-            og_s, mem_s = og[gorder], members[gorder]
-            gcuts = np.r_[
-                0, np.flatnonzero(og_s[1:] != og_s[:-1]) + 1, len(og_s)
-            ]
-            hard = False
-            # shared walk budget for ALL of this segment's out-of-group
-            # right walks: linear in segment size (hostile staging cost
-            # stays O(n) total — advisor finding, round 3), generous for
-            # benign shapes; exhaustion marks the segment hard, which the
-            # exact scalar fallback absorbs. Chains _right_walks answered
-            # (those within the segment) draw nothing from it
-            walk_budget = max(_RIGHT_WALK_CAP, 8 * len(members))
-            seg_rank_sids: list = []
-            seg_rank_vals: list = []
-            seg_max_rank = 0
-            for a, b in zip(gcuts[:-1], gcuts[1:]):
-                grows = mem_s[a:b]
-                # only right-bearing members need the per-row checks
-                gr = grows[rr[grows] >= 0]
-                if not len(gr):
-                    continue
-                n_groups += 1
-                grow_set = set(grows.tolist())
-                has_anchor = False
-                # one fused python pass (groups are tiny — typically the
-                # few writers racing one position — so per-group numpy
-                # reductions cost more than they save)
-                for rt, walked in zip(right_row[gr].tolist(),
-                                      walk_of[gr].tolist()):
-                    if rt < 0 or seg[rt] != S:
-                        hard = True  # dangling/unknown or cross-parent
-                        break
-                    if rt in grow_set:
-                        has_anchor = True  # in-group anchor: simulated
-                        continue
-                    if walked >= 0:
-                        # answered by _right_walks without a walk
-                        if walked:
-                            hard = True
-                            break
-                        continue
-                    # out-of-group right: hard if its origin chain passes
-                    # through a GROUP member (the scan would stop inside
-                    # that member's subtree). Walks draw on the segment's
-                    # shared linear budget (see above)
-                    cur = rt
-                    while cur >= 0:
-                        if cur in grow_set:
-                            hard = True
-                            break
-                        walk_budget -= 1
-                        if walk_budget < 0:
-                            hard = True  # budget spent: exact fallback
-                            break
-                        cur = int(origin_row[cur])
-                    if hard:
-                        break
-                if hard:
-                    break
-                if not has_anchor:
-                    continue  # attachment-free: plain keys are exact
-                glist = grows.tolist()
-                sibs = [
-                    {
-                        "id": int(ikey_s[r]),
-                        "client": int(client_raw_s[r]),
-                        "clock": int(clock_raw_s[r]),
-                        "right": int(rkey[r]) if rr[r] >= 0 else None,
-                    }
-                    for r in glist
-                ]
-                ordered = _simulate_group(
-                    sibs, {int(ikey_s[r]) for r in glist}
-                )
-                n_scanned += 1
-                seg_rank_sids.extend(ordered)
-                seg_rank_vals.extend(range(len(ordered)))
-                seg_max_rank = max(seg_max_rank, len(ordered) - 1)
-            if hard:
-                hard_reps.append(int(order[int(members[0])]))
-                hard_segs.append(int(S))
-                continue
-            rank_sids.extend(seg_rank_sids)
-            rank_vals.extend(seg_rank_vals)
-            max_rank = max(max_rank, seg_max_rank)
-    if tracer.enabled:
-        hard_rows = 0
+        g = _right_groups(rows_r, right_row, walk_of, seg, origin_row,
+                          oc_s, seq_rows, uniq_valid & (kid_s < 0))
+        scan = g.anchor & ~g.seg_hard[g.seg]
+        max_rank = 0
+        path = None
+        n_scanned = 0
+        if scan.any():
+            # CSR of every replayed group: a group's members lie in row
+            # order, which is (client, clock) order (rows are sorted by
+            # id key, whose client rank is monotone in the raw client)
+            mrows = g.rows[scan[g.of]]
+            sizes = g.size[scan]
+            offsets = np.r_[0, np.cumsum(sizes)]
+            local = np.arange(len(mrows)) - np.repeat(offsets[:-1], sizes)
+            at = np.full(n, -1, np.int64)
+            at[mrows] = local
+            is_anchor = np.zeros(n, bool)
+            is_anchor[rows_r[g.row_anchor]] = True
+            anchor = np.where(is_anchor[mrows], at[right_row[mrows]], -1)
+            right = np.where(rr[mrows] >= 0, rkey[mrows], np.int64(-1))
+            ranks, path = _scan_ranks(offsets, ikey_s[mrows],
+                                      client_raw_s[mrows],
+                                      clock_raw_s[mrows], right, anchor)
+            client_s[mrows] = ranks
+            max_rank = int(sizes.max()) - 1
+            n_scanned = len(mrows)
+        hard_segs = np.flatnonzero(g.seg_hard).tolist()
+        hard_reps: list = []
         if hard_segs:
-            hard_rows = int(np.isin(seg[rows_r], hard_segs).sum())
-        for name, v in (("rights.rows", len(rows_r)),
-                        ("rights.groups", n_groups),
-                        ("rights.scanned_groups", n_scanned),
-                        ("rights.hard_segments", len(hard_segs)),
-                        ("rights.hard_rows", hard_rows)):
-            tracer.count(name, v)
-    if rank_sids:
-        rows = np.searchsorted(ikey_s, np.asarray(rank_sids, np.int64))
-        client_s[rows] = np.asarray(rank_vals, np.int64)
+            first = np.full(len(g.seg_hard), n, np.int64)
+            np.minimum.at(first, seg[seq_rows], seq_rows)
+            hard_reps = [int(order[first[s]]) for s in hard_segs]
+    if tracer.enabled:
+        # a segment's groups count up to its first hard group, and an
+        # orphan segment's not at all
+        before = ~g.seg_orphan[g.seg]
+        gid = np.arange(len(g.seg))
+        first_hard = g.first_hard[g.seg]
+        counts = [
+            ("rights.rows", len(rows_r), None),
+            ("rights.groups",
+             int((g.bearing & before & (gid <= first_hard)).sum()), None),
+            ("rights.scanned_groups",
+             int((g.anchor & before & (gid < first_hard)).sum()), None),
+            ("rights.hard_segments", len(hard_segs), None),
+            ("rights.hard_rows", int(g.seg_hard[seg[rows_r]].sum()), None),
+            ("rights.walked_rows", g.walked, None),
+        ]
+        if path is not None:
+            counts.append(("rights.scanned_rows", n_scanned,
+                           {"path": path}))
+        for name, v, labels in counts:
+            tracer.count(name, v, labels=labels)
     return client_s, hard_reps, max_rank, hard_segs
+
+
+class _RightGroups(NamedTuple):
+    """The origin groups of :func:`_stage_rights`, tested as array
+    passes (:func:`_right_groups`). G groups, S segment ids."""
+
+    rows: np.ndarray        # sequence rows of every segment holding a
+                            # right-bearing row, grouped by (segment,
+                            # origin row), row order within a group
+    of: np.ndarray          # group id of each entry of ``rows``
+    size: np.ndarray        # [G] members
+    seg: np.ndarray         # [G] segment
+    bearing: np.ndarray     # [G] holds a right-bearing row
+    anchor: np.ndarray      # [G] holds an in-group anchor
+    row_anchor: np.ndarray  # per right-bearing row: its target is a
+                            # member of its group
+    first_hard: np.ndarray  # [S] the segment's first hard group (G: none)
+    seg_orphan: np.ndarray  # [S] a member's declared origin is unresolved
+    seg_hard: np.ndarray    # [S] orphan or holding a hard group
+    walked: int             # rows that took the budgeted walk
+
+
+def _right_groups(rows_r, right_row, walk_of, seg, origin_row, oc_s,
+                  seq_rows, is_seq) -> _RightGroups:
+    """Every test of :func:`_stage_rights`' origin groups at once.
+
+    One stable sort keys the sequence rows of the segments holding a
+    right-bearing row by (segment, origin row), so each origin group is
+    a run, numbered in the order a walk over segments and then origin
+    rows meets them. A right-bearing row makes its group hard when its
+    target is missing or in another segment, or when
+    :func:`_right_walks` found a member of the group on the target's
+    chain (an in-group anchor aside). Rows :func:`_right_walks` left
+    open walk the chain in Python, in group and then row order, on a
+    budget shared by the segment (``max(_RIGHT_WALK_CAP, 8 * its
+    sequence rows)``): meeting a member, or running the budget out,
+    makes the group hard. Since walks of a group at or after the
+    segment's first hard group are skipped, the walks and their budget
+    are the ones a group-by-group pass would make."""
+    n = len(seg)
+    n_segs = int(seg.max()) + 1
+    seg_r = seg[rows_r]
+    has_r = np.zeros(n_segs, bool)
+    has_r[seg_r] = True
+    sq = seq_rows[has_r[seg[seq_rows]]]
+    seg_q = seg[sq]
+    key = seg_q * (n + 1) + (origin_row[sq] + 1)
+    so = np.argsort(key, kind="stable")
+    ks = key[so]
+    rows = sq[so]
+    new = np.r_[True, ks[1:] != ks[:-1]]
+    of = np.cumsum(new) - 1
+    starts = np.flatnonzero(new)
+    n_groups = len(starts)
+    gid = np.full(n, -1, np.int64)
+    gid[rows] = of
+    gid_r = gid[rows_r]
+
+    rt = right_row[rows_r]
+    rtc = np.maximum(rt, 0)
+    bad = (rt < 0) | (seg[rtc] != seg_r)
+    row_anchor = ~bad & is_seq[rtc] & (origin_row[rtc] == origin_row[rows_r])
+    static = bad | (~row_anchor & (walk_of == 1))
+    open_ = ~bad & ~row_anchor & (walk_of < 0)
+
+    orphan = np.zeros(n_segs, bool)
+    orphan[seg_q[(oc_s[sq] >= 0) & (origin_row[sq] < 0)]] = True
+    first_hard = np.full(n_segs, n_groups, np.int64)
+    np.minimum.at(first_hard, seg_r[static], gid_r[static])
+
+    walked = 0
+    wi = np.flatnonzero(open_ & ~orphan[seg_r])
+    if len(wi):
+        wi = wi[np.argsort(gid_r[wi], kind="stable")]
+        members = np.bincount(seg_q, minlength=n_segs)
+        origin_l = origin_row.tolist()
+        gid_l = gid.tolist()
+        budget: dict = {}
+        for g, s, cur in zip(gid_r[wi].tolist(), seg_r[wi].tolist(),
+                             rt[wi].tolist()):
+            if g >= first_hard[s]:
+                continue
+            left = budget.get(s)
+            if left is None:
+                left = max(_RIGHT_WALK_CAP, 8 * int(members[s]))
+            walked += 1
+            hard = False
+            while cur >= 0:
+                if gid_l[cur] == g:
+                    hard = True  # the scan would stop in a member's subtree
+                    break
+                left -= 1
+                if left < 0:
+                    hard = True  # budget spent: exact fallback
+                    break
+                cur = origin_l[cur]
+            budget[s] = left
+            if hard:
+                first_hard[s] = g
+    return _RightGroups(
+        rows=rows, of=of, size=np.diff(np.r_[starts, len(ks)]),
+        seg=seg[rows[starts]],
+        bearing=np.bincount(gid_r, minlength=n_groups) > 0,
+        anchor=np.bincount(gid_r[row_anchor], minlength=n_groups) > 0,
+        row_anchor=row_anchor, first_hard=first_hard, seg_orphan=orphan,
+        seg_hard=orphan | (first_hard < n_groups), walked=walked,
+    )
+
+
+def _scan_ranks(offsets, ids, client, clock, right, anchor):
+    """Conflict-scan ranks of CSR origin groups (see
+    :func:`crdt_tpu_torch.codec.native.conflict_ranks`) and the path
+    that computed them: the native library in one call, or, where it
+    did not load, :func:`_simulate_group` a group at a time."""
+    if native.available():
+        return native.conflict_ranks(offsets, client, right, anchor), \
+            "native"
+    ranks = np.empty(len(ids), np.int64)
+    idl, cl, ck, rl = (ids.tolist(), client.tolist(), clock.tolist(),
+                       right.tolist())
+    offs = offsets.tolist()
+    for a, b in zip(offs[:-1], offs[1:]):
+        sibs = [{"id": idl[i], "client": cl[i], "clock": ck[i],
+                 "right": rl[i] if rl[i] >= 0 else None}
+                for i in range(a, b)]
+        at = {idl[i]: i for i in range(a, b)}
+        for j, sid in enumerate(_simulate_group(sibs, set(idl[a:b]))):
+            ranks[at[sid]] = j
+    return ranks, "python"
 
 
 def _right_walks(rows_r, right_row, origin_row, seg, seq_rows):
