@@ -40,7 +40,6 @@ import json
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -148,28 +147,37 @@ def variant_sources(parent, vary) -> dict:
     return out
 
 
-def build(sources: dict, nvcc_flags) -> dict:
-    """{(variant, kernel): CDLL or the build error}: one nvcc per
-    library, all started together."""
+def build(sources: dict) -> dict:
+    """{(variant, kernel): CDLL or the build error}: each library built
+    by the port's own builder with the port's flags, one nvcc per
+    library, all started together (a failed variant is then built
+    alone, to tell it from the rest)."""
     from crdt_tpu_torch.ops import _build
 
-    procs = {}
-    for variant, kernels in sources.items():
-        for name, src in kernels.items():
-            lib = AB_DIR / variant / f"lib{name}.so"
-            lib.parent.mkdir(parents=True, exist_ok=True)
-            cmd = [_build.nvcc_path(), *nvcc_flags, "-o", str(lib), str(src)]
-            procs[(variant, name)] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
+    recipes = {
+        (variant, name): _build.Recipe(
+            f"{variant}_{name}", src, AB_DIR / variant, _build.NVCC_FLAGS,
+            headers="*.cuh", compiler="nvcc", error=_build.KernelError)
+        for variant, kernels in sources.items()
+        for name, src in kernels.items()}
+    try:
+        built = _build.build(list(recipes.values()))
+    except _build.KernelError:
+        built = {}
+        for r in recipes.values():
+            try:
+                built.update(_build.build([r]))
+            except _build.KernelError as e:
+                built[r.name] = f"build failed: {str(e)[-2000:]}"
     libs = {}
-    for key, (proc, lib) in procs.items():
-        text = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            libs[key] = f"build failed: {text[-2000:]}"
+    for key, r in recipes.items():
+        b = built[r.name]
+        if isinstance(b, str):
+            libs[key] = b
             continue
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
         log(f"build {key}: {' | '.join(regs)}")
-        libs[key] = ctypes.CDLL(str(lib))
+        libs[key] = ctypes.CDLL(str(b.path))
     return libs
 
 
@@ -280,12 +288,10 @@ def main() -> int:
 
     smi = chip_smoke.smi_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    flags = [*_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     vary = [(name, int(v)) for spec in args.vary
             for name, values in [spec.split("=", 1)]
             for v in values.split(",")]
-    libs = build(variant_sources(args.parent, vary), flags)
+    libs = build(variant_sources(args.parent, vary))
     dev = torch.device("cuda")
     inputs = main_path_inputs(torch)
     g = torch.Generator(device="cpu").manual_seed(1)

@@ -433,7 +433,7 @@ def main() -> int:
     from crdt_tpu_torch.net import transport
     t0 = time.perf_counter()
     transport.random_bytes(1)
-    log(f"build: native transport {transport._SO.name} in "
+    log(f"build: native transport {_build.target(transport._RECIPE).name} in "
         f"{time.perf_counter() - t0:.3f} s (g++)")
 
     dev = torch.device("cuda")

@@ -3,8 +3,9 @@
 The port's copy of ``crdt_tpu.codec.native``. It builds the port's own
 C++ source ``crdt_tpu_torch/csrc/v1codec.cc`` (module ``_v1codec_torch``,
 whose ``undefined`` sentinel is :data:`crdt_tpu_torch.codec.lib0.UNDEFINED`)
-as a CPython extension on first use (g++, Python + numpy headers) into
-the port's own build directory, ``crdt_tpu_torch/build/codec/``, and
+as a CPython extension on first use (g++, Python + numpy headers, by
+:mod:`crdt_tpu_torch.ops._build`) into the port's own build directory,
+``crdt_tpu_torch/build/codec/``, and
 exposes the entry points the replays need:
 
 - :func:`decode_updates_columns` — one C pass over a batch of v1 blobs
@@ -26,10 +27,7 @@ the card.
 
 from __future__ import annotations
 
-import os
-import subprocess
 import sysconfig
-import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -38,60 +36,38 @@ import numpy as np
 from crdt_tpu_torch.core.ids import DeleteSet
 from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_GC
+from crdt_tpu_torch.ops import _build
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "v1codec.cc"
-_BUILD_DIR = _PKG / "build" / "codec"
 _MODULE = "_v1codec_torch"
-_SO = _BUILD_DIR / f"{_MODULE}.so"
+_RECIPE = _build.Recipe(
+    "v1codec_torch", _SRC, _PKG / "build" / "codec",
+    (*_build.GXX_FLAGS, f"-I{sysconfig.get_paths()['include']}",
+     f"-I{np.get_include()}"),
+)
 
-_lock = threading.Lock()
-_mod = None
 _build_error: Optional[str] = None
 
 
-def _build() -> None:
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _SO.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [
-        "g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-        f"-I{sysconfig.get_paths()['include']}",
-        f"-I{np.get_include()}",
-        str(_SRC), "-o", str(tmp),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO)
-    except subprocess.CalledProcessError as e:
-        stderr = e.stderr.decode(errors="replace") if e.stderr else "(no output)"
-        raise RuntimeError(
-            f"native codec build failed ({' '.join(cmd)}):\n{stderr}"
-        ) from e
-    finally:
-        if tmp.exists():
-            tmp.unlink()
+def _import(path: Path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(_MODULE, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _load():
-    global _mod, _build_error
-    with _lock:
-        if _mod is not None:
-            return _mod
-        if _build_error is not None:
-            raise RuntimeError(_build_error)
-        try:
-            if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-                _build()
-            import importlib.util
-
-            spec = importlib.util.spec_from_file_location(_MODULE, _SO)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-        except Exception as e:  # remember: don't retry a broken toolchain
-            _build_error = f"native codec unavailable: {e}"
-            raise RuntimeError(_build_error) from e
-        _mod = mod
-        return mod
+    global _build_error
+    if _build_error is not None:
+        raise RuntimeError(_build_error)
+    try:
+        return _build.load(_RECIPE, _import)
+    except Exception as e:  # remember: don't retry a broken toolchain
+        _build_error = f"native codec unavailable: {e}"
+        raise RuntimeError(_build_error) from e
 
 
 def available() -> bool:

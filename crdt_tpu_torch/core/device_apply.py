@@ -73,6 +73,7 @@ class _Laps:
     def __call__(self, name: str) -> None:
         now = time.perf_counter()
         if self.tracer.enabled:
+            # crdtlint: emits=device_merge.admit,device_merge.specs,device_merge.select,device_merge.dispatch,device_merge.fetch,device_merge.link
             self.tracer.observe(name, now - self.t)
         self.t = now
 

@@ -75,7 +75,6 @@ from crdt_tpu_torch.codec import native, v1
 from crdt_tpu_torch.core.ids import DeleteSet, StateVector
 from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_ANY, K_GC, K_TYPE, TYPE_MAP
-from crdt_tpu_torch.guard.device import dispatch_guarded
 from crdt_tpu_torch.models.replay import ds_arrays, rows_visible
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import packed as pk
@@ -1742,6 +1741,8 @@ class IncrementalReplay:
             # the next healthy device round (the same contract the
             # crossover uses). A kernel error, a CUDA error or an
             # out-of-memory is not caught: it propagates out of apply().
+            from crdt_tpu_torch.guard.device import dispatch_guarded
+
             with get_tracer().span("incremental.dispatch"):
                 res = dispatch_guarded(
                     "incremental.converge", _dispatch, host=lambda: None

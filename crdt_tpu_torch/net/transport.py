@@ -2,9 +2,10 @@
 
 The port's copy of ``crdt_tpu.net.transport``. The transport is the
 shared C++ source ``native/transport/transport.cc`` (it imports no
-Python module), built with ``g++`` at first use into the port's own
-build directory, ``crdt_tpu_torch/build/transport/libtransport_torch.so``
-— never into ``native/build/`` — and driven through its flat C ABI. The
+Python module), built with ``g++`` at first use by
+:mod:`crdt_tpu_torch.ops._build` into the port's own build directory,
+``crdt_tpu_torch/build/transport/`` (``libtransport_torch-<hash>.so``),
+and driven through its flat C ABI. The
 wire bytes are the same, so a port endpoint and a reference endpoint
 talk to each other, and a box sealed by either package opens in the
 other.
@@ -28,105 +29,72 @@ needs the library raises, naming the build command.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+from crdt_tpu_torch.ops import _build
+
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG.parent / "native" / "transport" / "transport.cc"
-_BUILD_DIR = _PKG / "build" / "transport"
-_SO = _BUILD_DIR / "libtransport_torch.so"
-
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_RECIPE = _build.Recipe(
+    "transport_torch", _SRC, _PKG / "build" / "transport", _build.GXX_FLAGS)
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
-def _build_so() -> None:
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # pid-suffixed tmp: processes racing the first build each write
-    # their own file; the os.replace is what's atomic
-    tmp = _SO.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [
-        "g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-        str(_SRC), "-o", str(tmp),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO)
-    except FileNotFoundError as e:
-        raise RuntimeError(
-            f"native transport build failed ({' '.join(cmd)}): {e}"
-        ) from e
-    except subprocess.CalledProcessError as e:
-        stderr = e.stderr.decode(errors="replace") if e.stderr else "(no output)"
-        raise RuntimeError(
-            f"native transport build failed ({' '.join(cmd)}):\n{stderr}"
-        ) from e
-    finally:
-        if tmp.exists():
-            tmp.unlink()
-
-
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            _build_so()
-        lib = ctypes.CDLL(str(_SO))
+    return _build.load(_RECIPE, _bind)
 
-        lib.ct_hchacha20.argtypes = [_u8p, _u8p, _u8p]
-        lib.ct_aead_encrypt.restype = ctypes.c_int
-        lib.ct_aead_encrypt.argtypes = [
-            _u8p, _u8p, _u8p, ctypes.c_uint32, _u8p, ctypes.c_uint32, _u8p,
-        ]
-        lib.ct_aead_decrypt.restype = ctypes.c_int
-        lib.ct_aead_decrypt.argtypes = lib.ct_aead_encrypt.argtypes
-        lib.ct_xaead_encrypt.restype = ctypes.c_int
-        lib.ct_xaead_encrypt.argtypes = lib.ct_aead_encrypt.argtypes
-        lib.ct_xaead_decrypt.restype = ctypes.c_int
-        lib.ct_xaead_decrypt.argtypes = lib.ct_aead_encrypt.argtypes
-        lib.ct_x25519.restype = ctypes.c_int
-        lib.ct_x25519.argtypes = [_u8p, _u8p, _u8p]
-        lib.ct_x25519_base.argtypes = [_u8p, _u8p]
-        lib.ct_randombytes.argtypes = [_u8p, ctypes.c_uint32]
-        lib.ct_free.argtypes = [_u8p]
 
-        lib.udp_create.restype = ctypes.c_void_p
-        lib.udp_create.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
-        ]
-        lib.udp_port.restype = ctypes.c_int
-        lib.udp_port.argtypes = [ctypes.c_void_p]
-        lib.udp_close.argtypes = [ctypes.c_void_p]
-        lib.udp_set_loss.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
-        ]
-        lib.udp_send.restype = ctypes.c_long
-        lib.udp_send.argtypes = [
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, _u8p,
-            ctypes.c_uint32,
-        ]
-        lib.udp_send_unreliable.restype = ctypes.c_long
-        lib.udp_send_unreliable.argtypes = lib.udp_send.argtypes
-        lib.udp_poll.restype = ctypes.c_int
-        lib.udp_poll.argtypes = [ctypes.c_void_p]
-        lib.udp_recv.restype = ctypes.c_int
-        lib.udp_recv.argtypes = [
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(_u8p), ctypes.POINTER(ctypes.c_uint32),
-        ]
-        lib.udp_pending.restype = ctypes.c_int
-        lib.udp_pending.argtypes = [ctypes.c_void_p]
-        lib.udp_failed.restype = ctypes.c_uint64
-        lib.udp_failed.argtypes = [ctypes.c_void_p]
-        _lib = lib
-        return lib
+def _bind(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+
+    lib.ct_hchacha20.argtypes = [_u8p, _u8p, _u8p]
+    lib.ct_aead_encrypt.restype = ctypes.c_int
+    lib.ct_aead_encrypt.argtypes = [
+        _u8p, _u8p, _u8p, ctypes.c_uint32, _u8p, ctypes.c_uint32, _u8p,
+    ]
+    lib.ct_aead_decrypt.restype = ctypes.c_int
+    lib.ct_aead_decrypt.argtypes = lib.ct_aead_encrypt.argtypes
+    lib.ct_xaead_encrypt.restype = ctypes.c_int
+    lib.ct_xaead_encrypt.argtypes = lib.ct_aead_encrypt.argtypes
+    lib.ct_xaead_decrypt.restype = ctypes.c_int
+    lib.ct_xaead_decrypt.argtypes = lib.ct_aead_encrypt.argtypes
+    lib.ct_x25519.restype = ctypes.c_int
+    lib.ct_x25519.argtypes = [_u8p, _u8p, _u8p]
+    lib.ct_x25519_base.argtypes = [_u8p, _u8p]
+    lib.ct_randombytes.argtypes = [_u8p, ctypes.c_uint32]
+    lib.ct_free.argtypes = [_u8p]
+
+    lib.udp_create.restype = ctypes.c_void_p
+    lib.udp_create.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.udp_port.restype = ctypes.c_int
+    lib.udp_port.argtypes = [ctypes.c_void_p]
+    lib.udp_close.argtypes = [ctypes.c_void_p]
+    lib.udp_set_loss.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+    ]
+    lib.udp_send.restype = ctypes.c_long
+    lib.udp_send.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, _u8p,
+        ctypes.c_uint32,
+    ]
+    lib.udp_send_unreliable.restype = ctypes.c_long
+    lib.udp_send_unreliable.argtypes = lib.udp_send.argtypes
+    lib.udp_poll.restype = ctypes.c_int
+    lib.udp_poll.argtypes = [ctypes.c_void_p]
+    lib.udp_recv.restype = ctypes.c_int
+    lib.udp_recv.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(_u8p), ctypes.POINTER(ctypes.c_uint32),
+    ]
+    lib.udp_pending.restype = ctypes.c_int
+    lib.udp_pending.argtypes = [ctypes.c_void_p]
+    lib.udp_failed.restype = ctypes.c_uint64
+    lib.udp_failed.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def _as_u8p(data: bytes):

@@ -82,6 +82,7 @@ class FlightRecorder:
 
 
 _recorder = FlightRecorder(enabled=False)
+_recorder_lock = threading.Lock()
 
 
 def get_recorder() -> FlightRecorder:
@@ -90,5 +91,6 @@ def get_recorder() -> FlightRecorder:
 
 def set_recorder(recorder: FlightRecorder) -> FlightRecorder:
     global _recorder
-    _recorder = recorder
+    with _recorder_lock:
+        _recorder = recorder
     return recorder

@@ -270,6 +270,7 @@ class Tracer:
 
 
 _tracer = Tracer(enabled=False)
+_tracer_lock = threading.Lock()
 
 
 def get_tracer() -> Tracer:
@@ -278,5 +279,6 @@ def get_tracer() -> Tracer:
 
 def set_tracer(tracer: Tracer) -> Tracer:
     global _tracer
-    _tracer = tracer
+    with _tracer_lock:
+        _tracer = tracer
     return tracer

@@ -1,14 +1,25 @@
-"""Build and bind the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each ``csrc/*.cu`` source has a plain C interface. At first use it is
-compiled by ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
-its own shared library under ``crdt_tpu_torch/build/kernels/`` (listed
-in ``.gitignore``) and loaded with ``ctypes``. The library's file name
-carries a hash of its source and of every header under ``csrc/``, so
-an edited kernel or header never loads a stale build. :func:`build_all`
-starts one ``nvcc`` per source, all at once, and waits for them
-together. A failed build, load or launch raises :class:`KernelError`;
-nothing falls back to the plain version.
+Every native library of the port is built and loaded here: the v1
+codec (``csrc/v1codec.cc``, a CPython extension, ``g++``), the kvlog
+store and the transport (the shared ``native/*/*.cc``, ``g++``, bound
+with ``ctypes``) and the four CUDA kernels (``csrc/*.cu``, each with a
+plain C interface, ``nvcc -gencode arch=compute_90a,code=sm_90a``,
+bound with ``ctypes``). Each lands in its own directory under the
+gitignored ``crdt_tpu_torch/build/``, never in ``native/build/``.
+
+A library's file name is ``lib<name>-<hash>.so``: the hash covers its
+source, the headers beside it that it includes, its compiler and its
+flags, so an edited source, header or flag never loads a stale build.
+The compiler writes a temporary file named for its process and thread,
+which ``os.replace`` publishes; it runs outside any lock, so racing
+first builds each write their own file. Only the table of loaded
+libraries is taken under the lock, and a loaded library is returned
+without it. :func:`build` starts one compiler per source, all at once,
+and waits for them together. A failed build or load raises the
+recipe's error class: ``RuntimeError`` for the host libraries,
+:class:`KernelError` for the kernels, where nothing falls back to the
+plain version. A missing compiler raises at first use, never at import.
 """
 
 from __future__ import annotations
@@ -19,14 +30,18 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import partial
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple, TypeVar
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build" / "kernels"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-Wall")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,13 +75,27 @@ class KernelError(Exception):
     than route the work quietly to the host."""
 
 
+class Recipe(NamedTuple):
+    """How one library is built."""
+
+    name: str                # the file is lib<name>-<hash>.so
+    src: Path
+    out_dir: Path
+    flags: Tuple[str, ...]
+    headers: str = ""        # glob beside ``src`` of the headers it includes
+    compiler: str = "g++"    # "nvcc" resolves through :func:`nvcc_path`
+    error: type = RuntimeError
+
+
 class Built(NamedTuple):
     path: Path  # the shared library
-    log: str    # nvcc's output (ptxas resource usage with -Xptxas -v)
+    log: str    # the compiler's output (ptxas resource usage with -Xptxas -v)
 
+
+T = TypeVar("T")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, object] = {}
 
 
 def nvcc_path() -> str:
@@ -88,68 +117,97 @@ def nvcc_path() -> str:
     )
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha1()
-    for src in [CSRC / KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))]:
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+def target(r: Recipe) -> Path:
+    """The library's path: its name and a hash of what builds it."""
+    h = hashlib.sha1("\0".join((r.compiler, *r.flags)).encode())
+    headers = sorted(r.src.parent.glob(r.headers)) if r.headers else []
+    for src in [r.src, *headers]:
+        h.update(b"\0" + src.name.encode() + b"\0" + src.read_bytes())
+    return r.out_dir / f"lib{r.name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names=None) -> Dict[str, Built]:
-    """Compile the named kernels (default: all), one ``nvcc`` process
-    per source, started together. Reuses a library already built from
-    the same source. Raises KernelError naming every failed build."""
-    names = list(KERNELS) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+def build(recipes: Sequence[Recipe]) -> Dict[str, Built]:
+    """Compile each recipe's library unless it is already built, one
+    compiler process per source, started together. Raises the first
+    failed recipe's error class, naming every failed build."""
     done: Dict[str, Built] = {}
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            done[name] = Built(out, "")
-            continue
-        tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
-        cmd = [
-            nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(CSRC / KERNELS[name][0]),
-        ]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        ), tmp, out, cmd)
+    procs = {}
     errors = []
-    for name, (proc, tmp, out, cmd) in procs.items():
-        log, _ = proc.communicate()
-        log = log.decode(errors="replace")
+    for r in recipes:
+        out = target(r)
+        if out.exists():
+            done[r.name] = Built(out, "")
+            continue
+        r.out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(
+            f".so.tmp.{os.getpid()}.{threading.get_ident()}")
+        compiler = nvcc_path() if r.compiler == "nvcc" else r.compiler
+        cmd = [compiler, *r.flags, "-o", str(tmp), str(r.src)]
+        try:
+            procs[r.name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            ), r, tmp, out, cmd)
+        except OSError as e:
+            errors.append((r, f"{' '.join(cmd)}: {e}"))
+    for name, (proc, r, tmp, out, cmd) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
-            errors.append(f"{name}: {' '.join(cmd)}\n{log}")
             tmp.unlink(missing_ok=True)
+            errors.append((r, f"{' '.join(cmd)}\n{log}"))
             continue
         os.replace(tmp, out)
         done[name] = Built(out, log)
     if errors:
-        raise KernelError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise errors[0][0].error("native build failed:\n" + "\n".join(
+            f"lib{r.name}: {text}" for r, text in errors))
     return done
+
+
+def load(r: Recipe, bind: Callable[[Path], T]) -> T:
+    """The library of ``r``, built at first use and handed once to
+    ``bind`` (its path in, the loaded and signature-bound library out).
+    An ``OSError`` from ``bind`` raises the recipe's error class."""
+    lib = _loaded.get(r.name)
+    if lib is not None:
+        return lib
+    path = build([r])[r.name].path
+    with _lock:
+        lib = _loaded.get(r.name)
+        if lib is None:
+            try:
+                lib = _loaded[r.name] = bind(path)
+            except OSError as e:
+                raise r.error(f"cannot load {path}: {e}") from e
+    return lib
+
+
+def _recipe(name: str) -> Recipe:
+    return Recipe(name, CSRC / KERNELS[name][0], BUILD_DIR, NVCC_FLAGS,
+                  headers="*.cuh", compiler="nvcc", error=KernelError)
+
+
+def build_all(names=None) -> Dict[str, Built]:
+    """Compile the named kernels (default: all) together. Reuses a
+    library already built from the same source. Raises KernelError
+    naming every failed build."""
+    return build([_recipe(n) for n in (KERNELS if names is None else names)])
+
+
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in KERNELS[name][1].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = list(argtypes)
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded, signature-bound library of one kernel (built at
     first use)."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        built = build_all([name])[name]
-        try:
-            lib = ctypes.CDLL(str(built.path))
-        except OSError as e:
-            raise KernelError(f"cannot load {built.path}: {e}") from e
-        for fn, (restype, argtypes) in KERNELS[name][1].items():
-            f = getattr(lib, fn)
-            f.restype = restype
-            f.argtypes = list(argtypes)
-        _libs[name] = lib
-        return lib
+    lib = _loaded.get(name)
+    return lib if lib is not None else load(_recipe(name),
+                                            partial(_bind, name))
 
 
 def check(code: int, what: str) -> None:

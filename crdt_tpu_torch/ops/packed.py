@@ -241,6 +241,7 @@ def converge_async(plan: PackedPlan, *, device="cuda") -> ConvergeHandle:
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
+            # crdtlint: disable=CL203 (a CUDA event, not a recorder's)
             event.record(torch.cuda.current_stream(dev))
     return ConvergeHandle(plan, out, event)
 

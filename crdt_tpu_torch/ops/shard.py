@@ -647,6 +647,7 @@ def converge_async(splan: ShardPlan, *, device="cuda",
         event = None
         if dev0.type == "cuda":
             event = torch.cuda.Event()
+            # crdtlint: disable=CL203 (a CUDA event, not a recorder's)
             event.record(torch.cuda.current_stream(dev0))
     if tracer.enabled:
         tracer.count("shard.dispatches")

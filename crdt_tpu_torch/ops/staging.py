@@ -427,21 +427,17 @@ def _stage_rights(cols, order, ikey_s, uniq, seg, origin_row, oc_s,
         before = ~g.seg_orphan[g.seg]
         gid = np.arange(len(g.seg))
         first_hard = g.first_hard[g.seg]
-        counts = [
-            ("rights.rows", len(rows_r), None),
-            ("rights.groups",
-             int((g.bearing & before & (gid <= first_hard)).sum()), None),
-            ("rights.scanned_groups",
-             int((g.anchor & before & (gid < first_hard)).sum()), None),
-            ("rights.hard_segments", len(hard_segs), None),
-            ("rights.hard_rows", int(g.seg_hard[seg[rows_r]].sum()), None),
-            ("rights.walked_rows", g.walked, None),
-        ]
+        tracer.count("rights.rows", len(rows_r))
+        tracer.count("rights.groups",
+                     int((g.bearing & before & (gid <= first_hard)).sum()))
+        tracer.count("rights.scanned_groups",
+                     int((g.anchor & before & (gid < first_hard)).sum()))
+        tracer.count("rights.hard_segments", len(hard_segs))
+        tracer.count("rights.hard_rows", int(g.seg_hard[seg[rows_r]].sum()))
+        tracer.count("rights.walked_rows", g.walked)
         if path is not None:
-            counts.append(("rights.scanned_rows", n_scanned,
-                           {"path": path}))
-        for name, v, labels in counts:
-            tracer.count(name, v, labels=labels)
+            tracer.count("rights.scanned_rows", n_scanned,
+                         labels={"path": path})
     return client_s, hard_reps, max_rank, hard_segs
 
 

@@ -371,6 +371,7 @@ def _pod_broadcast(t: torch.Tensor, pod: Optional[Pod]) -> torch.Tensor:
 def _span(name: str):
     tracer = get_tracer()
     tracer.count("mesh.collectives")
+    # crdtlint: emits=mesh.agree,mesh.all_gather,mesh.all_gather2,mesh.broadcast,mesh.ppermute
     return tracer.span(name)
 
 

@@ -2,9 +2,10 @@
 
 The port's copy of ``crdt_tpu.storage.kv``. The store is the shared C++
 source ``native/kvlog/kvlog.cc`` (it imports no Python module), built
-with ``g++`` at first use into the port's own build directory,
-``crdt_tpu_torch/build/kvlog/libkvlog_torch.so`` — never into
-``native/build/`` — and driven through its flat C ABI with ctypes. The
+with ``g++`` at first use by :mod:`crdt_tpu_torch.ops._build` into the
+port's own build directory, ``crdt_tpu_torch/build/kvlog/``
+(``libkvlog_torch-<hash>.so``), and driven through its flat C ABI with
+ctypes. The
 library's file name differs from the reference's, so the two packages
 never load each other's build; the bytes on disk are the same, so a log
 written by either package opens in the other.
@@ -21,83 +22,59 @@ SURVEY.md §5 durability).
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
+from crdt_tpu_torch.ops import _build
+
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG.parent / "native" / "kvlog" / "kvlog.cc"
-_BUILD_DIR = _PKG / "build" / "kvlog"
-_SO = _BUILD_DIR / "libkvlog_torch.so"
-
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _build_so() -> None:
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # pid-suffixed tmp: two processes racing the first build each write
-    # their own file; the os.replace is what's atomic
-    tmp = _SO.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [
-        "g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-        str(_SRC), "-o", str(tmp),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO)
-    finally:
-        if tmp.exists():
-            tmp.unlink()
+_RECIPE = _build.Recipe(
+    "kvlog_torch", _SRC, _PKG / "build" / "kvlog", _build.GXX_FLAGS)
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            _build_so()
-        lib = ctypes.CDLL(str(_SO))
-        c_u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.kv_open.restype = ctypes.c_void_p
-        lib.kv_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
-        lib.kv_close.argtypes = [ctypes.c_void_p]
-        lib.kv_put.restype = ctypes.c_int
-        lib.kv_put.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32, c_u8p, ctypes.c_uint32]
-        lib.kv_del.restype = ctypes.c_int
-        lib.kv_del.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32]
-        lib.kv_batch.restype = ctypes.c_int
-        lib.kv_batch.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32]
-        lib.kv_get.restype = ctypes.c_int
-        lib.kv_get.argtypes = [
-            ctypes.c_void_p, c_u8p, ctypes.c_uint32,
-            ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_uint32),
-        ]
-        lib.kv_free.argtypes = [c_u8p]
-        lib.kv_scan.restype = ctypes.c_void_p
-        lib.kv_scan.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32, c_u8p, ctypes.c_uint32]
-        lib.kv_iter_next.restype = ctypes.c_int
-        lib.kv_iter_next.argtypes = [
-            ctypes.c_void_p,
-            ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_uint32),
-            ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_uint32),
-        ]
-        lib.kv_iter_close.argtypes = [ctypes.c_void_p]
-        lib.kv_sync.restype = ctypes.c_int
-        lib.kv_sync.argtypes = [ctypes.c_void_p]
-        lib.kv_compact.restype = ctypes.c_int
-        lib.kv_compact.argtypes = [ctypes.c_void_p]
-        lib.kv_count.restype = ctypes.c_uint64
-        lib.kv_count.argtypes = [ctypes.c_void_p]
-        lib.kv_log_size.restype = ctypes.c_uint64
-        lib.kv_log_size.argtypes = [ctypes.c_void_p]
-        lib.kv_live_size.restype = ctypes.c_uint64
-        lib.kv_live_size.argtypes = [ctypes.c_void_p]
-        _lib = lib
-        return lib
+    return _build.load(_RECIPE, _bind)
+
+
+def _bind(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.kv_open.restype = ctypes.c_void_p
+    lib.kv_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+    lib.kv_close.argtypes = [ctypes.c_void_p]
+    lib.kv_put.restype = ctypes.c_int
+    lib.kv_put.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32, c_u8p, ctypes.c_uint32]
+    lib.kv_del.restype = ctypes.c_int
+    lib.kv_del.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32]
+    lib.kv_batch.restype = ctypes.c_int
+    lib.kv_batch.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32]
+    lib.kv_get.restype = ctypes.c_int
+    lib.kv_get.argtypes = [
+        ctypes.c_void_p, c_u8p, ctypes.c_uint32,
+        ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_uint32),
+    ]
+    lib.kv_free.argtypes = [c_u8p]
+    lib.kv_scan.restype = ctypes.c_void_p
+    lib.kv_scan.argtypes = [ctypes.c_void_p, c_u8p, ctypes.c_uint32, c_u8p, ctypes.c_uint32]
+    lib.kv_iter_next.restype = ctypes.c_int
+    lib.kv_iter_next.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_uint32),
+    ]
+    lib.kv_iter_close.argtypes = [ctypes.c_void_p]
+    lib.kv_sync.restype = ctypes.c_int
+    lib.kv_sync.argtypes = [ctypes.c_void_p]
+    lib.kv_compact.restype = ctypes.c_int
+    lib.kv_compact.argtypes = [ctypes.c_void_p]
+    lib.kv_count.restype = ctypes.c_uint64
+    lib.kv_count.argtypes = [ctypes.c_void_p]
+    lib.kv_log_size.restype = ctypes.c_uint64
+    lib.kv_log_size.argtypes = [ctypes.c_void_p]
+    lib.kv_live_size.restype = ctypes.c_uint64
+    lib.kv_live_size.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def _as_u8p(data: bytes):

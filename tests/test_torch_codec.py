@@ -3,6 +3,8 @@
 of the port's ``lib0`` and imports nothing of the reference package, so
 values round-trip between the port's native and Python codecs."""
 
+import importlib.util
+import os
 import re
 from pathlib import Path
 
@@ -13,6 +15,7 @@ from crdt_tpu_torch.codec import lib0, native, v1
 from crdt_tpu_torch.core.ids import DeleteSet
 from crdt_tpu_torch.core.records import ItemRecord
 from crdt_tpu_torch.core.store import K_ANY
+from crdt_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "crdt_tpu_torch" / "csrc"
@@ -28,6 +31,26 @@ def test_native_codec_builds_from_the_ports_source():
     assert native.available()
     assert native._SRC == CSRC / "v1codec.cc"
     assert native._load().__name__ == "_v1codec_torch"
+
+
+def test_missing_compiler_raises_at_use_not_import(monkeypatch, tmp_path):
+    # a failed build is remembered: the codec falls back to Python
+    # without running g++ again on every call
+    path = os.environ["PATH"]
+    monkeypatch.setattr(native, "_RECIPE",
+                        native._RECIPE._replace(out_dir=tmp_path))
+    monkeypatch.delitem(_build._loaded, native._RECIPE.name, raising=False)
+    monkeypatch.setattr(native, "_build_error", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="native build failed"):
+        native.decode_updates_columns([_undefined_blob()])
+    assert not native.available()
+    assert not list(tmp_path.glob("*.tmp.*"))
+    monkeypatch.setenv("PATH", path)
+    assert not native.available()
+    assert not list(tmp_path.glob("*.so"))
+    spec = importlib.util.find_spec(native.__name__)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 
 def test_undefined_native_decode_then_python_encode():

@@ -74,3 +74,13 @@ def test_imports_and_replays_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_incremental_imports_first_in_a_fresh_interpreter():
+    # no package imported before it may break the cycle
+    # guard -> net -> api -> models.incremental
+    out = subprocess.run(
+        [sys.executable, "-c", "import crdt_tpu_torch.models.incremental"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]

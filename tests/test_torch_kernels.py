@@ -221,26 +221,57 @@ class TestWrappers:
         assert torch.equal(kernels.stream_scatter(pos[1:], 300),
                            kernels.stream_scatter(pos[1:].clone(), 300))
 
-    def test_build_name_covers_sources_and_headers(self, tmp_path,
+    @pytest.mark.parametrize("lib", ["kernels", "codec", "transport",
+                                     "kvlog"])
+    def test_build_name_covers_sources_and_headers(self, lib, tmp_path,
                                                    monkeypatch):
-        # an edited header (or source) names another library, so a
-        # stale build is never loaded; no nvcc needed
-        monkeypatch.setattr(_build, "CSRC", tmp_path)
-        for name, (src, _) in _build.KERNELS.items():
-            (tmp_path / src).write_text(f"// {name}\n")
-        (tmp_path / "lookback.cuh").write_text("// v1\n")
-        before = {name: _build._target(name) for name in _build.KERNELS}
-        (tmp_path / "lookback.cuh").write_text("// v2\n")
-        after = {name: _build._target(name) for name in _build.KERNELS}
-        assert all(before[k] != after[k] for k in before)
-        assert all(p.name.startswith(f"lib{k}-") for k, p in after.items())
-        (tmp_path / "extra.cuh").write_text("// new header\n")
-        assert _build._target("ds_mask") != after["ds_mask"]
-        (tmp_path / "extra.cuh").unlink()
-        assert _build._target("ds_mask") == after["ds_mask"]
-        (tmp_path / "ds_mask.cu").write_text("// edited\n")
-        assert _build._target("ds_mask") != after["ds_mask"]
-        assert _build._target("sv_deficit") == after["sv_deficit"]
+        # an edited source, header or flag names another library, so a
+        # stale build is never loaded; no compiler needed
+        if lib == "kernels":
+            monkeypatch.setattr(_build, "CSRC", tmp_path)
+            for name, (src, _) in _build.KERNELS.items():
+                (tmp_path / src).write_text(f"// {name}\n")
+            (tmp_path / "lookback.cuh").write_text("// v1\n")
+
+            def names():
+                return {k: _build.target(_build._recipe(k))
+                        for k in _build.KERNELS}
+
+            before = names()
+            (tmp_path / "lookback.cuh").write_text("// v2\n")
+            after = names()
+            assert all(before[k] != after[k] for k in before)
+            assert all(p.name.startswith(f"lib{k}-") for k, p in after.items())
+            (tmp_path / "extra.cuh").write_text("// new header\n")
+            assert names()["ds_mask"] != after["ds_mask"]
+            (tmp_path / "extra.cuh").unlink()
+            assert names() == after
+            (tmp_path / "ds_mask.cu").write_text("// edited\n")
+            edited = names()
+            assert edited["ds_mask"] != after["ds_mask"]
+            assert edited["sv_deficit"] == after["sv_deficit"]
+            monkeypatch.setattr(_build, "NVCC_FLAGS",
+                                _build.NVCC_FLAGS + ("-lineinfo",))
+            assert all(names()[k] != edited[k] for k in edited)
+            return
+        from crdt_tpu_torch.codec import native
+        from crdt_tpu_torch.net import transport
+        from crdt_tpu_torch.storage import kv
+
+        recipe = {"codec": native, "transport": transport,
+                  "kvlog": kv}[lib]._RECIPE
+        text = recipe.src.read_bytes()
+        r = recipe._replace(src=tmp_path / recipe.src.name)
+        r.src.write_bytes(text)
+        before = _build.target(r)
+        assert before == _build.target(recipe)  # content, not location
+        assert before.parent == recipe.out_dir
+        assert before.name.startswith(f"lib{recipe.name}-")
+        r.src.write_bytes(text + b"// edited\n")
+        assert _build.target(r) != before
+        r.src.write_bytes(text)
+        assert _build.target(r) == before
+        assert _build.target(r._replace(flags=r.flags + ("-g",))) != before
 
     @pytest.mark.parametrize("bad", [
         torch.zeros(4, dtype=torch.int64),

@@ -11,6 +11,7 @@ must read back the same in the other. The port builds its library into
 ``device="cpu"``) restarts from a native log written by the reference.
 """
 
+import importlib.util
 import json
 import os
 import types
@@ -28,6 +29,7 @@ from crdt_tpu.api.doc import Crdt as RefCrdt
 from crdt_tpu.storage import kv as ref_kv
 from crdt_tpu_torch.guard import faults
 from crdt_tpu_torch.net import replica as port_replica
+from crdt_tpu_torch.ops import _build
 from crdt_tpu_torch.storage import kv as port_kv
 
 REF = types.SimpleNamespace(name="ref", kv=ref_kv, st=ref_storage,
@@ -192,13 +194,28 @@ def test_the_port_builds_its_own_library(tmp_path):
     port_storage.KvLog(str(tmp_path / "a.kvlog")).close()
     ref_storage.KvLog(str(tmp_path / "b.kvlog")).close()
     pkg_build = Path(port_kv.__file__).resolve().parents[1] / "build"
-    assert port_kv._SO.parent == pkg_build / "kvlog"
-    assert port_kv._SO.name != ref_kv._SO.name
+    port_so = _build.target(port_kv._RECIPE)
+    assert port_so.parent == pkg_build / "kvlog"
+    assert port_so.name.startswith("libkvlog_torch-")
+    assert port_so.name != ref_kv._SO.name
     assert port_kv._SRC == ref_kv._SRC  # one shared source
-    assert Path(port_kv._load()._name) == port_kv._SO
+    assert Path(port_kv._load()._name) == port_so
     assert Path(ref_kv._load()._name) == ref_kv._SO
     native_build = port_kv._SRC.parents[1] / "build"
     assert not any("torch" in p.name for p in native_build.glob("*"))
+
+
+def test_missing_compiler_raises_at_use_not_import(monkeypatch, tmp_path):
+    monkeypatch.setattr(port_kv, "_RECIPE",
+                        port_kv._RECIPE._replace(out_dir=tmp_path / "b"))
+    monkeypatch.delitem(_build._loaded, port_kv._RECIPE.name,
+                        raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="native build failed"):
+        port_storage.KvLog(str(tmp_path / "a.kvlog"))
+    assert not list(tmp_path.rglob("*.tmp.*"))
+    spec = importlib.util.find_spec(port_kv.__name__)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 
 # ---------------------------------------------------------------------------

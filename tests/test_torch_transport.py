@@ -10,13 +10,16 @@ the same seeded inputs, open the reference's boxes and be opened by
 them, and carry messages to and from a reference endpoint.
 """
 
+import importlib.util
 import random
 import time
+from pathlib import Path
 
 import pytest
 
 from crdt_tpu.net import transport as ref
 from crdt_tpu_torch.net import transport as t
+from crdt_tpu_torch.ops import _build
 
 PACKAGES = {"port": t, "reference": ref}
 
@@ -31,23 +34,25 @@ def _rng_bytes(rng, n):
 
 
 def test_port_builds_its_own_library():
-    t._load()
+    so = Path(t._load()._name)
     ref._load()
-    assert t._SO.name == "libtransport_torch.so"
-    assert t._SO.parent.parts[-3:] == ("crdt_tpu_torch", "build", "transport")
-    assert t._SO.exists()
-    assert t._SO != ref._SO
+    assert so == _build.target(t._RECIPE)
+    assert so.name.startswith("libtransport_torch-")
+    assert so.parent.parts[-3:] == ("crdt_tpu_torch", "build", "transport")
+    assert so.exists()
+    assert so != ref._SO
     assert t._SRC == ref._SRC
 
 
 def test_missing_compiler_raises_at_use_not_import(monkeypatch, tmp_path):
-    monkeypatch.setattr(t, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(t, "_SO", tmp_path / "libtransport_torch.so")
-    monkeypatch.setattr(t, "_lib", None)
+    monkeypatch.setattr(t, "_RECIPE", t._RECIPE._replace(out_dir=tmp_path))
+    monkeypatch.delitem(_build._loaded, t._RECIPE.name, raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
-    with pytest.raises(RuntimeError, match="native transport build failed"):
+    with pytest.raises(RuntimeError, match="native build failed"):
         t.random_bytes(4)
     assert not list(tmp_path.glob("*.tmp.*"))
+    spec = importlib.util.find_spec(t.__name__)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 
 # ---------------------------------------------------------------------------
