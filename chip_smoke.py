@@ -644,6 +644,11 @@ def main() -> int:
 
     done("4 device route")
 
+    # ---- 4b. the packed converge's graph route --------------------------
+    graph_phase(torch, rp, kernels, packed_mod, staging,
+                blobs_of["scale_1000x1600"])
+    done("4b graph route")
+
     # ---- 5. the fleet route and the delta round -------------------------
     for i, (label, _) in enumerate(plans):
         blobs = blobs_of[label]
@@ -884,6 +889,246 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the packed converge's graph route
+# ---------------------------------------------------------------------------
+
+GRAPH_NESTED = dict(writers=8, arrays=16, edits_per_writer=300,
+                    sync_every=50, array_zipf=0.99,
+                    mix={"insert": 0.5, "push": 0.3, "unshift": 0.1,
+                         "cut": 0.1},
+                    cut_max=6, value_bytes=32, seed=11)
+
+
+def _plans_of(packed_mod, run) -> list:
+    """Every plan the main path hands ``packed.converge_async`` while
+    ``run()`` runs."""
+    seen = []
+    real = packed_mod.converge_async
+
+    def record(plan, **kw):
+        seen.append(plan)
+        return real(plan, **kw)
+
+    packed_mod.converge_async = record
+    try:
+        run()
+    finally:
+        packed_mod.converge_async = real
+    return seen
+
+
+def permuted_keys(torch, staging, plan, seed: int):
+    """A plan of ``plan``'s graph signature with other data: its map
+    keys permuted (each still a valid key), in the staged matrix or in
+    the eagerly shipped group that holds them."""
+    sizes = staging._section_sizes(plan.num_segments, plan.seq_bucket,
+                                   plan.map_bucket)
+    m = sizes[5]
+    halves = 2 if plan.encs[5] == "hilo" else 1
+    perm = torch.randperm(m, generator=torch.Generator().manual_seed(seed))
+    if plan.dev:
+        off, t = 0, plan.dev[2].clone()      # group 2 opens with the keys
+    else:
+        widths = [2 * n if e == "hilo" else n
+                  for n, e in zip(sizes, plan.encs)]
+        off, t = sum(widths[:5]), torch.from_numpy(plan.mat.copy())
+    perm = perm.to(t.device)
+    for h in range(halves):
+        a = off + h * m
+        t[a:a + m] = t[a:a + m][perm]
+    if plan.dev:
+        return plan._replace(dev=(plan.dev[0], plan.dev[1], t))
+    return plan._replace(mat=t.numpy())
+
+
+def graph_phase(torch, rp, kernels, packed_mod, staging, fanin_blobs,
+                device: str = "cuda") -> dict:
+    """Phase 4b: the packed converge's graph route (``packed.
+    ConvergeGraphs``), on a plan of each kind the benchmark's cells
+    converge: the ``tenants_1k`` server's (its load tick's batches and
+    the warm ticks of 1-16 new docs), the 1000 x 1600 fan-in (shipped
+    eagerly) and a nested workspace's. For each: the capture's result
+    and a replay's equal the eager body's byte for byte, a replay
+    launches each kernel once (``.launches`` and the benchmark's
+    ``KernelCalls``, bytes equal to the eager body's), and the memory
+    the signature's graphs hold. Then two plans of one signature with
+    other data, both enqueued before either fetch; a capture and its
+    replays inside the benchmark's traced window (``torch.profiler``);
+    and the host's time a dispatch, eager body against graph route, at
+    the server's one-doc plan. Returns the logged numbers."""
+    from benchmark.drivers.server import Driver
+    from benchmark.gen import nested
+    from benchmark.harness import cell, device as bench_dev
+    from crdt_tpu_torch.obs import Tracer, set_tracer
+
+    dev = torch.device(device, torch.cuda.current_device())
+    c = cell.load(str(ROOT), "tenants_1k.ycsb_d")
+    tenants = _plans_of(packed_mod, lambda: Driver(
+        c.config, dict(c.mix), 20261018, device, 1.0))
+    fanin = _plans_of(packed_mod, lambda: rp.replay_trace(
+        fanin_blobs, route="device", device=device))
+    nest_blobs = nested.build(**GRAPH_NESTED)[0]
+    nest = _plans_of(packed_mod, lambda: rp.replay_trace(
+        nest_blobs, route="device", device=device))
+    if len(fanin) != 1 or len(nest) != 1 or len(tenants) < 6:
+        raise AssertionError(f"graph route: plans {len(tenants)} tenants, "
+                             f"{len(fanin)} fan-in, {len(nest)} nested")
+    one_doc = min(tenants, key=lambda p: p.n)
+    cases = [(f"tenants[{i}] n={p.n}", p) for i, p in enumerate(tenants)]
+    cases += [("fanin_1000x1600", fanin[0]), ("nested", nest[0])]
+
+    def eager(plan):
+        return packed_mod._converge_packed_body(
+            *packed_mod._device_sections(plan, dev),
+            **packed_mod._plan_args(plan))
+
+    def equal(label, got, want):
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"graph route {label}: != the eager body")
+
+    out: dict = {"memory": {}}
+    saved = packed_mod._GRAPHS
+    tracer = set_tracer(Tracer(enabled=True))
+    try:
+        packed_mod._GRAPHS = packed_mod.GraphCache()
+        keys = set()
+        for label, plan in cases:
+            # a signature seen before replays on its first dispatch too
+            fresh = packed_mod.graph_key(plan, dev) not in keys
+            keys.add(packed_mod.graph_key(plan, dev))
+            with bench_dev.KernelCalls() as kc_eager:
+                want = eager(plan)
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated(dev)
+            r0 = torch.cuda.memory_reserved(dev)
+            first = packed_mod.converge_async(plan, device=device)
+            torch.cuda.synchronize()
+            hold = (torch.cuda.memory_allocated(dev) - a0
+                    - first.out.numel() * 4,
+                    torch.cuda.memory_reserved(dev) - r0)
+            kernels.reset_launches()
+            with bench_dev.KernelCalls() as kc:
+                second = packed_mod.converge_async(plan, device=device)
+            launched = kernels.launch_counts()
+            equal(f"{label} (capture)", first.out, want)
+            equal(f"{label} (replay)", second.out, want)
+            got, ref = (packed_mod.converge_fetch(second),
+                        packed_mod._assemble_result(plan, want.cpu().numpy()))
+            for f in ("win_rows", "stream_seg", "stream_row"):
+                if not (getattr(got, f) == getattr(ref, f)).all():
+                    raise AssertionError(f"graph route {label}: {f}")
+            calls, calls_eager = kc.totals(), kc_eager.totals()
+            for k in ("seg_argmax_scan", "stream_scatter"):
+                if launched[k] != 1 or calls[k]["calls"] != 1:
+                    raise AssertionError(
+                        f"graph route {label}: {k} launched "
+                        f"{launched[k]}, counted {calls[k]}")
+                if calls[k] != calls_eager[k]:
+                    raise AssertionError(
+                        f"graph route {label}: {k} counted {calls[k]}, "
+                        f"eager {calls_eager[k]}")
+            if fresh:
+                out["memory"][label] = hold
+            log(f"graph route {label}: "
+                f"{'capture' if fresh else 'replay'} and replay == eager "
+                f"body; one launch a kernel; KernelCalls "
+                f"{json.dumps(calls)}"
+                + (f"; graphs hold {hold[0]} B allocated, {hold[1]} B "
+                   "reserved" if fresh else ""))
+        counts = tracer.counters("converge.graph")
+        want_counts = {'converge.graph{path="capture"}': len(keys),
+                       'converge.graph{path="replay"}':
+                       2 * len(cases) - len(keys)}
+        if counts != want_counts:
+            raise AssertionError(f"graph route counters {counts}")
+
+        # two plans of one signature, enqueued before either fetch
+        for label, plan in (("fanin_1000x1600", fanin[0]),
+                            ("nested", nest[0]),
+                            ("tenants one doc", one_doc)):
+            other = permuted_keys(torch, staging, plan, 7)
+            if packed_mod.graph_key(other, dev) != \
+                    packed_mod.graph_key(plan, dev):
+                raise AssertionError(f"graph route {label}: variant key")
+            wa, wb = eager(plan), eager(other)
+            ha = packed_mod.converge_async(plan, device=device)
+            hb = packed_mod.converge_async(other, device=device)
+            equal(f"{label} first of two in flight", ha.out, wa)
+            equal(f"{label} second of two in flight", hb.out, wb)
+            differ = not torch.equal(wa, wb)
+            if label.startswith("fanin") and not differ:
+                raise AssertionError(f"graph route {label}: the variant "
+                                     "converges alike")
+            log(f"graph route {label}: two in flight of one signature == "
+                f"eager (results differ: {differ})")
+
+        # captures and replays inside the benchmark's traced window
+        packed_mod._GRAPHS = packed_mod.GraphCache()
+        order = [one_doc, one_doc, fanin[0], fanin[0], nest[0]]
+        wants = [eager(p) for p in order]
+        with bench_dev.traced("cuda") as tr:
+            hs = [packed_mod.converge_async(p, device=device) for p in order]
+            torch.cuda.synchronize()
+        for i, (h, w) in enumerate(zip(hs, wants)):
+            equal(f"traced window dispatch {i}", h.out, w)
+        calls = tr["calls"]
+        for k in ("seg_argmax_scan", "stream_scatter"):
+            if calls[k]["calls"] != len(order):
+                raise AssertionError(f"traced window: {k} {calls[k]}")
+        kernel_s = {k: tr["window"].kernel_s(k) for k in bench_dev.KERNELS}
+        log(f"graph route in a traced window: {len(order)} dispatches "
+            f"(3 captures) == eager; KernelCalls {json.dumps(calls)}; "
+            f"profiled kernel s {json.dumps(kernel_s)}")
+
+        # the host's time a dispatch at the server's one-doc plan
+        def eager_dispatch():
+            o = eager(one_doc)
+            torch.cuda.Event().record()
+            return o
+
+        def graph_dispatch():
+            return packed_mod.converge_async(one_doc, device=device).out
+
+        def clock(fn, n: int = 500) -> dict:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for _ in range(n):
+                fn().cpu()
+            t3 = time.perf_counter()
+            return {"enqueue_us": (t1 - t0) / n * 1e6,
+                    "drained_us": (t2 - t0) / n * 1e6,
+                    "with_fetch_us": (t3 - t2) / n * 1e6}
+
+        set_tracer(Tracer(enabled=False))
+        times = {}
+        for name, fn in (("eager", eager_dispatch), ("graph", graph_dispatch),
+                         ("eager again", eager_dispatch),
+                         ("graph again", graph_dispatch)):
+            times[name] = clock(fn)
+        # ... and inside the benchmark's traced window (the profiler and
+        # the kernel-call counts on), as a traced run times them
+        with bench_dev.traced("cuda"):
+            times["eager, traced"] = clock(eager_dispatch, 200)
+            times["graph, traced"] = clock(graph_dispatch, 200)
+        log(f"graph route host time a dispatch, one-doc plan (n={one_doc.n}, "
+            f"S={one_doc.num_segments}, B={one_doc.seq_bucket}, "
+            f"M={one_doc.map_bucket}): {json.dumps(times)}")
+        out["times"] = times
+    finally:
+        set_tracer(Tracer(enabled=False))
+        packed_mod._GRAPHS = saved
+    return out
 
 
 def steady_rounds(traces, base_blobs, n_ops: int, n_replicas: int, sizes,

@@ -98,12 +98,15 @@ def device_fault_hook():
 # ---------------------------------------------------------------------------
 
 
-def xfer_put(arr: np.ndarray, *, device, label: str = "stage"):
+def xfer_put(arr: np.ndarray, *, device, label: str = "stage",
+             out: torch.Tensor | None = None):
     """The ONE host->device seam. The numpy array ships at its own
     width (an int16 staged section stays int16 on the link); for the
     card it is copied into pinned host memory and the upload is
     enqueued asynchronously on the current stream (the caching host
     allocator keeps the pinned block alive until the copy has run).
+    With ``out`` (a tensor of the array's dtype and shape on
+    ``device``) the upload lands there and ``out`` is returned.
     Records ``xfer.h2d_bytes`` / ``xfer.h2d_puts`` and the enqueue
     latency into the ``xfer.h2d`` histogram."""
     dev = resolve_device(device)
@@ -111,7 +114,11 @@ def xfer_put(arr: np.ndarray, *, device, label: str = "stage"):
     t0 = time.perf_counter()
     host = torch.from_numpy(np.ascontiguousarray(arr))
     if dev.type == "cuda":
-        out = host.pin_memory().to(dev, non_blocking=True)
+        host = host.pin_memory()
+    if out is not None:
+        out.copy_(host, non_blocking=dev.type == "cuda")
+    elif dev.type == "cuda":
+        out = host.to(dev, non_blocking=True)
     else:
         out = host.to(dev)
     if tracer.enabled:

@@ -18,7 +18,11 @@ interactions:
 
 There is no sort and no host sync inside step 2: every loop runs a
 round count fixed on the host at staging (``rank_rounds``,
-``map_rounds``).
+``map_rounds``). So on the card the torch glue before and after the
+two kernels is captured once per plan signature as two CUDA graphs
+(:class:`ConvergeGraphs`) and replayed: a dispatch is a few host calls
+however many small ops the glue holds, and the kernels still launch
+through this module's names on every converge.
 
 The second half is the live replica's device round
 (:class:`crdt_tpu_torch.models.incremental.IncrementalReplay`): the
@@ -32,6 +36,9 @@ port writes into it, so a round's one upload is the delta block.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -100,21 +107,27 @@ def _decode_sections(flat: torch.Tensor, sizes, encs) -> list:
     return out
 
 
-def _map_block(mkey, cend, rend, *, map_rounds: int) -> torch.Tensor:
-    """Map side of the fused converge: segmented Lamport argmax over
-    chain-parent runs + winner-chain doubling, all at map-bucket width.
-    Each node's children sit in one contiguous run (staging grouped
-    them), ordered (client asc, clock asc); the scan's run-prefix
-    argmax read at a run's END is the run's (max client, min clock)
-    member — the last child of the Yjs sibling order. Every gather
-    index is clamped exactly where the reference clamps it."""
-    M = mkey.shape[0]
-    dev = mkey.device
+def _map_keys(mkey):
+    """The scan's inputs from the staged map keys: the Lamport client
+    (-1 on padding rows) and the run-start flag (padding rows are their
+    own runs)."""
     live = mkey >= 0
     mflag = torch.where(live, mkey & 1, torch.ones_like(mkey)).to(_I32)
     mcl = torch.where(live, mkey >> 1, torch.full_like(mkey, NULLI)).to(_I32)
-    arg = seg_argmax_scan(mcl, mflag)
-    iota_m = torch.arange(M, dtype=_I32, device=dev)
+    return mcl, mflag
+
+
+def _map_tail(arg, cend, rend, *, map_rounds: int) -> torch.Tensor:
+    """Map side of the fused converge after the scan, at map-bucket
+    width: each chain's last child, winner-chain doubling and each
+    segment's winner position. Each node's children sit in one
+    contiguous run (staging grouped them), ordered (client asc, clock
+    asc); the scan's run-prefix argmax ``arg`` read at a run's END is
+    the run's (max client, min clock) member — the last child of the
+    Yjs sibling order. Every gather index is clamped exactly where the
+    reference clamps it."""
+    M = arg.shape[0]
+    iota_m = torch.arange(M, dtype=_I32, device=arg.device)
     last = torch.where(cend >= 0, arg[cend.clamp(0, M - 1)], iota_m)
     tail = pointer_double(last, max_iters=map_rounds)
     start = torch.where(
@@ -125,29 +138,12 @@ def _map_block(mkey, cend, rend, *, map_rounds: int) -> torch.Tensor:
     ).to(_I32)
 
 
-def _converge_packed_body(sseg, soff, cp, nxt, fc, mkey, cend, rend, *,
-                          num_segments: int, seq_bucket: int,
-                          map_bucket: int, rank_rounds: int,
-                          map_rounds: int) -> torch.Tensor:
-    """The fused convergence over the staged layout sections. Returns
-    one packed int32 tensor:
-
-      [ win_pos[S] | stream_perm[B] ]
-
-    - win_pos: grouped map-block position of each segment's winner
-      (-1 for non-map / empty segments; the host maps back through
-      ``plan.map_back``);
-    - stream_perm: compact sequence index at each document-order
-      position, grouped by segment id ascending (-1 padding at the
-      tail; the host maps back through ``plan.seq_back``).
-    """
+def _seq_positions(sseg, soff, cp, nxt, fc, *, num_segments: int,
+                   seq_bucket: int, rank_rounds: int) -> torch.Tensor:
+    """Sequence side up to the scatter: DFS ranks over the staged
+    sibling tables, then each row's document-order target
+    ``off[seg] + rank`` (-1 for rows outside every sequence)."""
     B, S = seq_bucket, num_segments
-    dev = sseg.device
-
-    win_pos = _map_block(mkey, cend, rend, map_rounds=map_rounds)
-
-    # ---- sequence side: DFS ranks over the staged sibling tables,
-    # then document order as the scatter out[off[seg] + rank] = row
     c_ok = sseg >= 0
     mB = B + S
     seg0 = sseg.clamp(min=0)
@@ -160,13 +156,58 @@ def _converge_packed_body(sseg, soff, cp, nxt, fc, mkey, cend, rend, *,
     root_dist = dist[(B + seg0).clamp(max=mB - 1)]
     c_rank = torch.where(c_ok, root_dist - dist[:B] - 1,
                          torch.full_like(root_dist, NULLI))
-    pos = torch.where(
+    return torch.where(
         c_ok & (c_rank >= 0),
         soff[sseg.clamp(0, S - 1)] + c_rank,
         torch.full_like(c_rank, NULLI),
-    )
-    perm = stream_scatter(pos.to(_I32), B)
-    return torch.cat([win_pos, perm.to(dev)])
+    ).to(_I32)
+
+
+def _converge_pre(sseg, soff, cp, nxt, fc, mkey, cend, rend, *,
+                  num_segments: int, seq_bucket: int, map_bucket: int,
+                  rank_rounds: int, map_rounds: int) -> tuple:
+    """The torch glue before the two kernels: ``(mcl, mflag, pos)``,
+    the scan's client and flag columns and the scatter's targets."""
+    mcl, mflag = _map_keys(mkey)
+    pos = _seq_positions(sseg, soff, cp, nxt, fc, num_segments=num_segments,
+                         seq_bucket=seq_bucket, rank_rounds=rank_rounds)
+    return mcl, mflag, pos
+
+
+def _converge_post(arg, perm, cend, rend, *,
+                   map_rounds: int) -> torch.Tensor:
+    """The torch glue after the two kernels: the map tail from the
+    scan's ``arg``, then the one packed result beside the scatter's
+    ``perm``."""
+    return torch.cat([_map_tail(arg, cend, rend, map_rounds=map_rounds),
+                      perm])
+
+
+def _converge_packed_body(sseg, soff, cp, nxt, fc, mkey, cend, rend, *,
+                          num_segments: int, seq_bucket: int,
+                          map_bucket: int, rank_rounds: int,
+                          map_rounds: int) -> torch.Tensor:
+    """The fused convergence over the staged layout sections:
+    :func:`_converge_pre`, the two kernels, :func:`_converge_post`.
+    Returns one packed int32 tensor:
+
+      [ win_pos[S] | stream_perm[B] ]
+
+    - win_pos: grouped map-block position of each segment's winner
+      (-1 for non-map / empty segments; the host maps back through
+      ``plan.map_back``);
+    - stream_perm: compact sequence index at each document-order
+      position, grouped by segment id ascending (-1 padding at the
+      tail; the host maps back through ``plan.seq_back``).
+    """
+    mcl, mflag, pos = _converge_pre(
+        sseg, soff, cp, nxt, fc, mkey, cend, rend,
+        num_segments=num_segments, seq_bucket=seq_bucket,
+        map_bucket=map_bucket, rank_rounds=rank_rounds,
+        map_rounds=map_rounds)
+    arg = seg_argmax_scan(mcl, mflag)
+    perm = stream_scatter(pos, seq_bucket)
+    return _converge_post(arg, perm, cend, rend, map_rounds=map_rounds)
 
 
 class PackedResult(NamedTuple):
@@ -196,53 +237,231 @@ def _plan_args(plan: PackedPlan) -> dict:
     )
 
 
-def _put_mat(plan: PackedPlan, device) -> torch.Tensor:
-    """A matrix plan's ONE upload through the xfer seam, with the
-    per-section width/savings record made at the same moment."""
+def _put_mat(plan: PackedPlan, device, out=None) -> torch.Tensor:
+    """A matrix plan's ONE upload through the xfer seam (into ``out``
+    when given), with the per-section width/savings record made at the
+    same moment."""
     record_staged_widths(
         dict(plan.staged_widths), plan.mat.nbytes,
         5 * bucket_grid(plan.n, floor=6) * 4,
     )
-    return xfer_put(plan.mat, device=device, label="converge.mat")
+    return xfer_put(plan.mat, device=device, label="converge.mat", out=out)
 
 
-def _device_sections(plan: PackedPlan, device) -> list:
-    """The eight widened int32 sections on ``device``."""
-    sizes = _section_sizes(plan.num_segments, plan.seq_bucket,
-                           plan.map_bucket)
+def _staged_inputs(plan: PackedPlan, device) -> list:
+    """The staged plan on ``device`` as uploaded: the one narrow matrix,
+    or the three section groups staging shipped eagerly."""
     if not plan.dev:
-        return _decode_sections(_put_mat(plan, device), sizes, plan.encs)
-    secs = []
-    for dref, (a, b) in zip(plan.dev, _SECTION_GROUPS):
+        return [_put_mat(plan, device)]
+    for dref in plan.dev:
         if dref.device != device:
             raise ValueError(
                 f"plan was shipped to {dref.device}, converge asked "
                 f"for {device}"
             )
+    return list(plan.dev)
+
+
+def _decode_staged(staged: list, plan: PackedPlan) -> list:
+    """The eight widened int32 sections of :func:`_staged_inputs`'s
+    tensors (the widening prelude)."""
+    sizes = _section_sizes(plan.num_segments, plan.seq_bucket,
+                           plan.map_bucket)
+    if not plan.dev:
+        return _decode_sections(staged[0], sizes, plan.encs)
+    secs = []
+    for dref, (a, b) in zip(staged, _SECTION_GROUPS):
         secs.extend(_decode_sections(dref, sizes[a:b], plan.encs[a:b]))
     return secs
 
 
+def _device_sections(plan: PackedPlan, device) -> list:
+    """The eight widened int32 sections on ``device``."""
+    return _decode_staged(_staged_inputs(plan, device), plan)
+
+
+# ---------------------------------------------------------------------------
+# the card's route: the glue around the two kernels as two CUDA graphs
+# ---------------------------------------------------------------------------
+
+# signatures whose graphs stay captured; the least recently used one is
+# dropped beyond this (a tenant server meets a handful of signatures, a
+# replay one)
+GRAPH_CACHE_SIZE = 8
+
+
+def graph_key(plan: PackedPlan, device) -> tuple:
+    """The static signature a captured converge is replayed for: the
+    plan's buckets and round counts, its section sizes and encodings,
+    the staged tensors' dtypes and shapes, and the device. Two plans of
+    one key run the same launch sequence on inputs of the same
+    layout."""
+    if plan.dev:
+        staged = tuple((str(t.dtype), tuple(t.shape)) for t in plan.dev)
+    else:
+        staged = ((str(plan.mat.dtype), tuple(plan.mat.shape)),)
+    return (tuple(_plan_args(plan).items()),
+            _section_sizes(plan.num_segments, plan.seq_bucket,
+                           plan.map_bucket),
+            tuple(plan.encs), staged, str(device))
+
+
+class ConvergeGraphs:
+    """One signature's converge as two captured halves around the two
+    hand-written kernels: ``pre`` (widening prelude, the scan's inputs,
+    the sequence side up to the scatter's targets) and ``post`` (the
+    map tail and the packed result). The kernels stay ordinary calls
+    through this module's names, so every converge launches and counts
+    them as the eager body does.
+
+    ``capture(fn)`` returns ``(graph, outputs)``: ``fn()``'s outputs,
+    which every ``graph.replay()`` rewrites in place. The static inputs
+    start as copies of ``plan``'s staged tensors (``staged``) and the
+    kernels' outputs of no map row, so they hold a valid converge
+    whether or not a capture runs what it records."""
+
+    def __init__(self, plan: PackedPlan, staged: list, capture):
+        self.ins = [t.clone() for t in staged]
+        args = _plan_args(plan)
+        self.seq_bucket = plan.seq_bucket
+        dev = self.ins[0].device
+        M = _section_sizes(plan.num_segments, plan.seq_bucket,
+                           plan.map_bucket)[5]
+        self.arg = torch.zeros(M, dtype=_I32, device=dev)
+        self.perm = torch.full((plan.seq_bucket,), NULLI, dtype=_I32,
+                               device=dev)
+        # the stream and event of the last converge enqueued on it
+        self.stream = self.event = None
+
+        def pre():
+            secs = _decode_staged(self.ins, plan)
+            return (*_converge_pre(*secs, **args), secs[6], secs[7])
+
+        self.pre, (self.mcl, self.mflag, self.pos, cend, rend) = \
+            capture(pre)
+        self.post, (self.out,) = capture(lambda: (_converge_post(
+            self.arg, self.perm, cend, rend, map_rounds=plan.map_rounds),))
+
+    def run(self, plan: PackedPlan) -> torch.Tensor:
+        """Enqueue one converge of ``plan`` (of this signature) on the
+        current stream; returns its own copy of the packed result, so a
+        later run cannot overwrite a result not yet fetched."""
+        dev = self.ins[0].device
+        if plan.dev:
+            for dst, src in zip(self.ins, plan.dev):
+                dst.copy_(src, non_blocking=True)
+        else:
+            _put_mat(plan, dev, out=self.ins[0])
+        self.pre.replay()
+        arg = seg_argmax_scan(self.mcl, self.mflag)
+        perm = stream_scatter(self.pos, self.seq_bucket)
+        self.arg.copy_(arg)
+        self.perm.copy_(perm)
+        self.post.replay()
+        return self.out.clone()
+
+    def retire(self) -> None:
+        """Wait for the last converge enqueued on these graphs, so that
+        dropping them never frees memory the card still reads."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
+class GraphCache:
+    """The captured converges by :func:`graph_key`, least recently used
+    first; never more than ``GRAPH_CACHE_SIZE``. ``lock`` serializes
+    the dispatches that use it (a cached pair's static tensors are
+    shared)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, key):
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry) -> None:
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        while len(self._entries) > GRAPH_CACHE_SIZE:
+            _, old = self._entries.popitem(last=False)
+            old.retire()
+
+
+_GRAPHS = GraphCache()
+
+
+def _cuda_capture(fn, *, pool, stream):
+    """``fn()`` captured into a new CUDA graph on ``stream`` with the
+    memory pool ``pool``. Errors raise: there is no eager fallback."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            outs = fn()
+        finally:
+            graph.capture_end()
+    return graph, outs
+
+
+def _graph_dispatch(plan: PackedPlan, dev: torch.device):
+    """The card's converge: a replay of the plan's signature, or, the
+    first time a signature is seen, the eager body (which serves the
+    converge and warms both halves) and then its capture. Returns the
+    result and the event recorded after it."""
+    stream = torch.cuda.current_stream(dev)
+    key = graph_key(plan, dev)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        path = "capture"
+        staged = _staged_inputs(plan, dev)
+        out = _converge_packed_body(*_decode_staged(staged, plan),
+                                    **_plan_args(plan))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        entry = ConvergeGraphs(plan, staged, partial(
+            _cuda_capture, pool=torch.cuda.graph_pool_handle(),
+            stream=side))
+        stream.wait_stream(side)
+        _GRAPHS.put(key, entry)
+    else:
+        path = "replay"
+        if entry.stream is not None and entry.stream != stream:
+            # the static tensors' last user ran on another stream
+            stream.wait_event(entry.event)
+        out = entry.run(plan)
+    event = torch.cuda.Event()
+    # crdtlint: disable=CL203 (a CUDA event, not a recorder's)
+    event.record(stream)
+    entry.stream, entry.event = stream, event
+    get_tracer().count("converge.graph", labels={"path": path})
+    return out, event
+
+
 def converge_async(plan: PackedPlan, *, device="cuda") -> ConvergeHandle:
     """ENQUEUE the fused convergence and return without waiting for
-    the device. On the card every step is asynchronous on the current
-    stream — the pinned upload, the widening prelude, both kernels and
-    the doubling loops — and the handle carries a CUDA event recorded
-    after the last launch; :func:`converge_fetch` is the only sync.
+    the device; :func:`converge_fetch` is the only sync.
 
-    Torch has no buffer donation: the uploaded staged array is
-    referenced only until the widening prelude has read it, after
-    which the caching allocator hands its block to the converge's
-    temporaries (the reuse JAX got by donating the buffer)."""
+    On the card every step is asynchronous on the current stream: the
+    pinned upload, the ``pre`` graph, both kernels, the ``post`` graph
+    and the result's copy (:class:`ConvergeGraphs`, cached by
+    :func:`graph_key`; a new signature runs the eager body once and is
+    captured), and the handle carries a CUDA event recorded after them.
+    Elsewhere the eager body runs and the handle has no event."""
     dev = resolve_device(device)
     with get_tracer().span("converge.dispatch"):
-        secs = _device_sections(plan, dev)
-        out = _converge_packed_body(*secs, **_plan_args(plan))
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            # crdtlint: disable=CL203 (a CUDA event, not a recorder's)
-            event.record(torch.cuda.current_stream(dev))
+        if dev.type != "cuda":
+            out = _converge_packed_body(*_device_sections(plan, dev),
+                                        **_plan_args(plan))
+            return ConvergeHandle(plan, out, None)
+        with torch.cuda.device(dev), _GRAPHS.lock:
+            out, event = _graph_dispatch(plan, dev)
     return ConvergeHandle(plan, out, event)
 
 

@@ -860,7 +860,7 @@ def _subtree_split(seg, seq_rows, c_parent, client_s, width,
                     did = True
                     # winner stitch: the device's winner root is the
                     # root run's prefix-argmax read at its end — the
-                    # (max client, min clock) root (see _map_block);
+                    # (max client, min clock) root (see packed._map_tail);
                     # its chain's deepest node lives in that chain's
                     # LAST piece. The same argmax inside the winner's
                     # piece re-elects it (any subset containing the
