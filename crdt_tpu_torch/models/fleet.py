@@ -14,7 +14,8 @@ two tiers on a (hosts, replicas) one:
 
 :func:`fleet_replay` (``replay_trace(route="fleet")``) turns per-replica
 v1 blobs into one such round and assembles its outputs into the same
-cache and snapshot the cold replay gives; its ``shard=`` picks the
+cache and snapshot the cold replay gives, beside the round's
+anti-entropy plan (:class:`FleetPlan`); its ``shard=`` picks the
 mapping: the replicated round, the work-divided segment round
 (:class:`SegmentedFleet`) or the sharded packed converge
 (:mod:`crdt_tpu_torch.ops.shard`).
@@ -68,6 +69,25 @@ class FleetStep(NamedTuple):
     seq_rank: np.ndarray        # [R*N] YATA document rank (id-sorted space)
     seq_len: np.ndarray         # [S] per-sequence lengths
     map_order: np.ndarray       # [R*N] MAP id-sort perm — winners decode here
+
+
+class FleetPlan(NamedTuple):
+    """A swarm round's anti-entropy plan (the state-vector handshake,
+    crdt.js:237-291), keyed by client id: column ``k`` of the vectors
+    is client ``clients[k]``, row ``i`` is the peer of blob ``i``.
+    Every field is :class:`FleetStep`'s, computed on the device."""
+
+    clients: np.ndarray   # [C] raw client ids, ascending
+    peer_sv: np.ndarray   # [R, C] next clock of each client a peer holds
+    swarm_sv: np.ndarray  # [C] the swarm vector: the peers' max
+    deficit: np.ndarray   # [R, R] clocks peer i holds that peer j lacks
+
+    def vector(self, peer: int) -> Dict[int, int]:
+        """Peer ``peer``'s state vector as Yjs writes it: client id ->
+        next clock, for the clients it holds anything of."""
+        row = self.peer_sv[peer]
+        held = np.flatnonzero(row)
+        return dict(zip(self.clients[held].tolist(), row[held].tolist()))
 
 
 class ReplicaFleet:
@@ -179,12 +199,13 @@ class ReplicaFleet:
                          label="fleet.dels"),
             )
             vec = xfer_fetch(out, label="fleet.out")
+        R = self.n_replicas
+        N = self.ops_per_replica
         if tracer.enabled:
             tracer.count(
                 "fleet.ops_converged", int(np.asarray(cols["valid"]).sum())
             )
-        R = self.n_replicas
-        N = self.ops_per_replica
+            tracer.count("fleet.slots", R * N)
         parts = unpack_fleet_out(
             vec, R, N, self.num_clients, self.num_segments
         )
@@ -332,8 +353,10 @@ def load_trace(
     # per-blob row attribution by id: dedup may have dropped a later
     # copy of an op, so every id in any blob resolves by search
     per_rows: List[np.ndarray] = []
+    decoded = 0
     for blob in blobs:
         d = native.decode_updates_columns_any([blob])
+        decoded += len(d["client"])
         bid = (
             intern(d["client"]) << _CLOCK_BITS
         ) | d["clock"].astype(np.int64)
@@ -345,6 +368,10 @@ def load_trace(
         hit = union_id[rows] == bid
         per_rows.append(rows[hit].astype(np.int64))
 
+    tracer = get_tracer()
+    if tracer.enabled:
+        # rows every blob held past the union's one copy of each id
+        tracer.count("fleet.redelivered", decoded - n)
     r_raw = max(len(blobs), 1)
     R = -(-r_raw // replicas_multiple) * replicas_multiple
     N = ops_bucket or bucket_pow2(max(max(
@@ -408,6 +435,20 @@ def load_trace(
         clients=uniq,
         num_clients=len(uniq) + 2,
         num_segments=bucket_pow2(max(n_segs, 16)),
+    )
+
+
+def plan_of(trace: FleetTrace, out: FleetStep, n_peers: int) -> FleetPlan:
+    """``out``'s handshake fields mapped back to client ids, for the
+    first ``n_peers`` replicas (the blobs; the rest pad R to a mesh).
+    Interned id ``i`` is client ``trace.clients[i - 1]``, so the
+    vectors' columns 1..C are the clients in order."""
+    c = len(trace.clients) if len(trace.dec["client"]) else 0
+    return FleetPlan(
+        clients=trace.clients[:c].astype(np.int64),
+        peer_sv=out.sv_local[:n_peers, 1:c + 1].copy(),
+        swarm_sv=out.global_sv[1:c + 1].copy(),
+        deficit=out.deficit[:n_peers, :n_peers].copy(),
     )
 
 
@@ -754,7 +795,11 @@ def fleet_replay(
       cold replay. A union the sharded stager refuses falls through to
       ``"replicas"``, reusing the decoded union;
     - ``"replicas"`` — the reference's full-mesh shape: every replica's
-      columns gathered, the union converged once;
+      columns gathered, the union converged once; the result's
+      ``plan`` is the round's anti-entropy plan (:class:`FleetPlan`:
+      each blob's peer's state vector, the swarm vector and the
+      pairwise deficit, keyed by client id), ``None`` on the other
+      mappings;
     - ``"segments"`` — the work-divided round over the general kernels
       (:class:`SegmentedFleet`): each entry converges only its segment
       shard."""
@@ -806,6 +851,7 @@ def fleet_replay(
             shared_dec = dec
         elif trace.n_replicas % nd:
             trace = None
+    plan = None
     if shard == "segments":
         if trace is None:
             dec = replay.decode(blobs)
@@ -842,6 +888,9 @@ def fleet_replay(
                 f"segments={fleet.num_segments}"
             )
         out = fleet.step(trace.cols, trace.dels)
+        with tracer.span("fleet.plan"):
+            plan = plan_of(trace, out,
+                           min(len(blobs), trace.n_replicas))
         with tracer.span("gather"):
             win_rows, win_vis, seq_orders = gather_fleet(trace, out,
                                                          device=dev)
@@ -852,4 +901,5 @@ def fleet_replay(
         snapshot=replay.compact(trace.dec, trace.ds),
         n_ops=trace.n_ops,
         path="fleet",
+        plan=plan,
     )

@@ -71,6 +71,9 @@ class ReplayResult(NamedTuple):
     snapshot: bytes    # compacted single-blob log
     n_ops: int         # unit items replayed
     path: str = "device"  # which engine converged
+    # the round's anti-entropy plan (a models.fleet.FleetPlan) on the
+    # fleet route's replicated mapping; None on every other route
+    plan: Optional[object] = None
 
 
 def decode(blobs: Sequence[bytes]) -> Dict:

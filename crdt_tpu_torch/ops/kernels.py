@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops import _build
 from crdt_tpu_torch.ops.device import lexsort
 
@@ -321,6 +322,12 @@ def ds_mask(client: torch.Tensor, clock: torch.Tensor, valid: torch.Tensor,
     if any(t.is_floating_point() or t.is_complex()
            for t in (clock, d_client, d_start, d_end)):
         raise ValueError("ds_mask clocks and ranges must be integers")
+    tracer = get_tracer()
+    if tracer.enabled:
+        # the operands of each call (a launch on the card), which a
+        # byte count reads
+        tracer.count("ds_mask.items", n)
+        tracer.count("ds_mask.ranges", d_client.shape[0])
     if not client.is_cuda:
         return ds_mask_plain(*tensors)
     d = d_client.shape[0]
@@ -376,9 +383,18 @@ def sv_deficit(svs: torch.Tensor) -> torch.Tensor:
     if svs.dim() != 2 or svs.dtype != torch.int64:
         raise ValueError(f"svs must be a 2-D int64 tensor, got {svs.dtype} "
                          f"of shape {tuple(svs.shape)}")
+    r, c = svs.shape
+    tracer = get_tracer()
+    if tracer.enabled:
+        # the operands of each call (a launch on the card), which an
+        # operation count reads
+        tracer.count("sv_deficit.rows", r)
+        tracer.count("sv_deficit.clients", c)
+        tracer.count("sv_deficit.cells", r * r * c)
+        tracer.count("sv_deficit.entries", r * c)
+        tracer.count("sv_deficit.pairs", r * r)
     if not svs.is_cuda:
         return sv_deficit_plain(svs)
-    r, c = svs.shape
     if r >= 1 << 31 or c >= 1 << 31:
         raise ValueError("sv_deficit takes fewer than 2**31 rows and columns")
     lib = _build.library("sv_deficit")
