@@ -89,8 +89,10 @@ def decode_updates_columns(blobs: Sequence[bytes]) -> Dict:
     Returns a dict of numpy columns (client/clock/parent_root/
     parent_client/parent_clock/key_id/origin_client/origin_clock/
     right_client/right_clock/kind/type_ref), a ``contents`` list, the
-    interning tables ``roots``/``keys``, and ``ds`` — flat
-    (client, clock, length) triples.
+    interning tables ``roots``/``keys``, ``ds`` — flat
+    (client, clock, length) triples — and ``blob_rows``, the rows each
+    blob appended, in input order (blob ``i``'s rows are the union's
+    rows from ``blob_rows[:i].sum()`` on).
     """
     # bytes() normalization: the C pass takes exact bytes; callers may
     # hand bytearray/memoryview (the Python fallback accepts them too)
@@ -232,12 +234,14 @@ def _decode_py(blobs: Sequence[bytes]) -> Dict:
 
     records: List[ItemRecord] = []
     triples: List[int] = []
+    blob_rows: List[int] = []
     for blob in blobs:
         recs, d = v1.decode_update(blob)
         records.extend(recs)
+        blob_rows.append(len(recs))
         for c, s, length in d.iter_all():
             triples.extend((c, s, length))
-    records = resolve_parents(records)
+    records = resolve_parents(records)  # keeps record order
     n = len(records)
     dec: Dict = {
         "client": np.empty(n, np.int64),
@@ -254,6 +258,7 @@ def _decode_py(blobs: Sequence[bytes]) -> Dict:
         "type_ref": np.full(n, -1, np.int32),
         "contents": [r.content for r in records],
         "ds": np.asarray(triples, np.int64),
+        "blob_rows": np.asarray(blob_rows, np.int64),
     }
     roots: Dict[str, int] = {}
     keys: Dict[str, int] = {}
@@ -313,6 +318,7 @@ def merge_decoded(chunks: Sequence[Dict]) -> Dict:
     parts: Dict[str, List[np.ndarray]] = {k: [] for k in _COLUMN_KEYS}
     contents: List = []
     ds_parts: List[np.ndarray] = []
+    blob_rows: List[np.ndarray] = []
     for c in chunks:
         root_map = np.asarray(
             [roots.setdefault(r, len(roots)) for r in c["roots"]],
@@ -335,11 +341,13 @@ def merge_decoded(chunks: Sequence[Dict]) -> Dict:
             parts[name].append(col)
         contents.extend(c["contents"])
         ds_parts.append(np.asarray(c["ds"], np.int64).reshape(-1))
+        blob_rows.append(c["blob_rows"])
     out = {k: np.concatenate(parts[k]) for k in _COLUMN_KEYS}
     out["contents"] = contents
     out["ds"] = np.concatenate(ds_parts) if ds_parts else np.empty(
         0, np.int64
     )
+    out["blob_rows"] = np.concatenate(blob_rows)
     out["roots"] = list(roots)
     out["keys"] = list(keys)
     _resolve_parents_merged(out)
@@ -441,7 +449,12 @@ def dedup_columns(dec: Dict) -> Dict:
     overlapping log segments — produce duplicate ids that the kernels
     dedup on-device but that would corrupt a host re-ENCODE (both
     encoders' run/skip bookkeeping assumes unique, forward-moving
-    clocks per client)."""
+    clocks per client).
+
+    ``blob_rows`` passes through. When rows drop, the result also
+    carries ``survivor``: for each row of the input, the row of the
+    result that holds its id (its first occurrence). When nothing
+    drops the input returns as it is, and the map is the identity."""
     n = len(dec["client"])
     if n == 0:
         return dec
@@ -451,8 +464,9 @@ def dedup_columns(dec: Dict) -> Dict:
     order = np.lexsort((dec["clock"], dec["client"]))
     sc = dec["client"][order]
     sk = dec["clock"][order]
+    starts = np.r_[True, (sc[1:] != sc[:-1]) | (sk[1:] != sk[:-1])]
     first = np.zeros(n, bool)
-    first[order[np.r_[True, (sc[1:] != sc[:-1]) | (sk[1:] != sk[:-1])]]] = True
+    first[order[starts]] = True
     if first.all():
         return dec
     idx = np.flatnonzero(first)  # original order preserved
@@ -462,6 +476,14 @@ def dedup_columns(dec: Dict) -> Dict:
     out["ds"] = dec["ds"]
     out["roots"] = dec["roots"]
     out["keys"] = dec["keys"]
+    out["blob_rows"] = dec["blob_rows"]
+    # the lexsort is stable, so each id's group opens on its first
+    # occurrence; that row's rank among the kept rows is its new row
+    kept_rank = np.cumsum(first) - 1
+    group = np.cumsum(starts) - 1
+    survivor = np.empty(n, np.int64)
+    survivor[order] = kept_rank[order[starts]][group]
+    out["survivor"] = survivor
     return out
 
 

@@ -630,6 +630,10 @@ static PyObject* decode_updates(PyObject*, PyObject* args) {
   Columns C;
   std::vector<int64_t> ds;
   Py_ssize_t nblobs = PySequence_Fast_GET_SIZE(seq);
+  // rows each blob appended, in input order: blob i's rows are the
+  // union's rows [sum(blob_rows[:i]), sum(blob_rows[:i + 1]))
+  std::vector<int64_t> blob_rows;
+  blob_rows.reserve(nblobs);
   for (Py_ssize_t i = 0; i < nblobs; i++) {
     PyObject* b = PySequence_Fast_GET_ITEM(seq, i);
     char* buf;
@@ -640,6 +644,7 @@ static PyObject* decode_updates(PyObject*, PyObject* args) {
       return nullptr;
     }
     Reader r{(const uint8_t*)buf, (const uint8_t*)buf + blen};
+    const int64_t rows_before = (int64_t)C.n();
     if (!decode_one(r, C, ds) || !r.ok) {
       C.free_contents();
       Py_DECREF(seq);
@@ -647,6 +652,7 @@ static PyObject* decode_updates(PyObject*, PyObject* args) {
         PyErr_SetString(PyExc_ValueError, "malformed v1 update");
       return nullptr;
     }
+    blob_rows.push_back((int64_t)C.n() - rows_before);
   }
   Py_DECREF(seq);
   resolve_parents(C);
@@ -681,6 +687,7 @@ static PyObject* decode_updates(PyObject*, PyObject* args) {
   set("kind", np_from_vec(C.kind, NPY_INT32));
   set("type_ref", np_from_vec(C.type_ref, NPY_INT32));
   set("ds", np_from_vec(ds, NPY_INT64));
+  set("blob_rows", np_from_vec(blob_rows, NPY_INT64));
   set("roots", py_string_list(C.roots));
   set("keys", py_string_list(C.keys));
   if (PyDict_SetItemString(out, "contents", contents) < 0) fail = true;

@@ -32,7 +32,6 @@ from crdt_tpu_torch.codec import native
 from crdt_tpu_torch.models import replay
 from crdt_tpu_torch.obs.tracer import get_tracer
 from crdt_tpu_torch.ops.device import (
-    _CLOCK_BITS,
     bucket_pow2,
     resolve_device,
     xfer_fetch,
@@ -318,15 +317,23 @@ def load_trace(
     capacity) so several traces share one fleet's shapes. ``dec``
     reuses a caller-decoded union.
 
-    Known cost: each blob is wire-decoded twice (once in the union for
-    one consistent root/key interning, once alone for row
-    attribution), as in the reference."""
+    A replica's rows come from the union's one parse: the codec reports
+    each blob's row count (``blob_rows``) and dedup maps every parsed
+    row to the union row that kept its id (``survivor``), so the layout
+    is one array pass and no blob is decoded again. A ``dec`` that is
+    not ``replay.decode(blobs)`` raises."""
     blobs = list(blobs)
     if dec is None:
         dec = replay.decode(blobs)
     kcols = native.kernel_columns(dec)
     ds = native.ds_from_triples(dec["ds"])
     n = len(dec["client"])
+    # blob b's rows are rows[start[b]:start[b] + counts[b]]
+    counts = dec.get("blob_rows")
+    rows = dec.get("survivor", np.arange(n))
+    if counts is None or len(counts) != len(blobs) \
+            or int(counts.sum()) != len(rows):
+        raise ValueError("dec is not the union of these blobs")
 
     # dense order-preserving client interning first: id packing shifts
     # the client by 40 bits, and a raw 32-bit client would alias
@@ -344,46 +351,22 @@ def load_trace(
             (a >= 0) & (uniq[idxc] == a), idxc + 1, np.where(a < 0, a, 0)
         )
 
-    union_id = (
-        intern(kcols["client"]) << _CLOCK_BITS
-    ) | kcols["clock"].astype(np.int64)
-    sort_idx = np.argsort(union_id, kind="stable")
-    sorted_ids = union_id[sort_idx]
-
-    # per-blob row attribution by id: dedup may have dropped a later
-    # copy of an op, so every id in any blob resolves by search
-    per_rows: List[np.ndarray] = []
-    decoded = 0
-    for blob in blobs:
-        d = native.decode_updates_columns_any([blob])
-        decoded += len(d["client"])
-        bid = (
-            intern(d["client"]) << _CLOCK_BITS
-        ) | d["clock"].astype(np.int64)
-        if n == 0 or len(bid) == 0:
-            per_rows.append(np.empty(0, np.int64))
-            continue
-        pos = np.clip(np.searchsorted(sorted_ids, bid), 0, n - 1)
-        rows = sort_idx[pos]
-        hit = union_id[rows] == bid
-        per_rows.append(rows[hit].astype(np.int64))
-
     tracer = get_tracer()
     if tracer.enabled:
         # rows every blob held past the union's one copy of each id
-        tracer.count("fleet.redelivered", decoded - n)
+        tracer.count("fleet.redelivered", len(rows) - n)
     r_raw = max(len(blobs), 1)
     R = -(-r_raw // replicas_multiple) * replicas_multiple
-    N = ops_bucket or bucket_pow2(max(max(
-        (len(r) for r in per_rows), default=1), 1))
-    if any(len(r) > N for r in per_rows):
+    widest = int(counts.max()) if len(counts) else 0
+    N = ops_bucket or bucket_pow2(max(widest, 1))
+    if widest > N:
         raise ValueError(
-            f"ops_bucket={N} below a replica's "
-            f"{max(len(r) for r in per_rows)} rows"
+            f"ops_bucket={N} below a replica's {widest} rows"
         )
     row_map = np.full((R, N), -1, np.int64)
-    for r, rows in enumerate(per_rows):
-        row_map[r, : len(rows)] = rows
+    peer = np.repeat(np.arange(len(counts)), counts)
+    start = np.cumsum(counts) - counts
+    row_map[peer, np.arange(len(rows)) - start[peer]] = rows
 
     flat = row_map.reshape(-1)
     sel = np.clip(flat, 0, None)

@@ -85,3 +85,69 @@ def test_native_and_python_decode_agree_on_a_mixed_trace():
     for k in ("client", "clock", "key_id", "origin_client", "kind"):
         np.testing.assert_array_equal(a[k], b[k])
     assert a["contents"] == b["contents"]
+
+
+def _blob_set():
+    """Peers' overlapping views, the same view twice, an empty blob and
+    a delete-only blob: duplicate ids across blobs, and blobs of no
+    rows."""
+    from benchmark.gen import swarm as gen_swarm
+
+    blobs = gen_swarm.build(12, 10, 4, 10, seed=23)[0]
+    _, ds = v1.decode_update(blobs[0])
+    return (blobs[:5] + [v1.encode_update([], DeleteSet())] + blobs[5:]
+            + [blobs[2], v1.encode_update([], ds)])
+
+
+def test_blob_rows_are_each_blobs_rows_in_the_union():
+    blobs = _blob_set()
+    got = native.decode_updates_columns(blobs)
+    alone = [len(native.decode_updates_columns([b])["client"])
+             for b in blobs]
+    assert got["blob_rows"].dtype == np.int64
+    assert got["blob_rows"].tolist() == alone
+    assert 0 in alone and got["blob_rows"].sum() == len(got["client"])
+    np.testing.assert_array_equal(native._decode_py(blobs)["blob_rows"],
+                                  got["blob_rows"])
+    # each blob's rows are its own decode's, in the same order
+    start = np.cumsum(got["blob_rows"]) - got["blob_rows"]
+    for b, s, k in zip(blobs, start, alone):
+        one = native.decode_updates_columns([b])
+        for col in ("client", "clock"):
+            np.testing.assert_array_equal(got[col][s:s + k], one[col])
+    assert native.decode_updates_columns([])["blob_rows"].size == 0
+
+
+def test_merge_decoded_concatenates_the_chunks_blob_rows():
+    blobs = _blob_set()
+    chunks = [native.decode_updates_columns_any(blobs[i:i + 4])
+              for i in range(0, len(blobs), 4)]
+    merged = native.merge_decoded(chunks)
+    np.testing.assert_array_equal(
+        merged["blob_rows"], native.decode_updates_columns(blobs)["blob_rows"])
+    assert native.merge_decoded(chunks[:1])["blob_rows"] is \
+        chunks[0]["blob_rows"]
+    assert native.merge_decoded([])["blob_rows"].size == 0
+
+
+def test_dedup_maps_every_parsed_row_to_its_ids_first_occurrence():
+    blobs = _blob_set()
+    parsed = native.decode_updates_columns(blobs)
+    dec = native.dedup_columns(parsed)
+    assert len(dec["client"]) < len(parsed["client"])
+    assert dec["blob_rows"] is parsed["blob_rows"]
+    surv = dec["survivor"]
+    assert surv.dtype == np.int64 and len(surv) == len(parsed["client"])
+    for col in ("client", "clock"):
+        np.testing.assert_array_equal(dec[col][surv], parsed[col])
+    ids = list(zip(parsed["client"].tolist(), parsed["clock"].tolist()))
+    first = {}
+    for i, key in enumerate(ids):
+        first.setdefault(key, i)
+    kept = sorted(first.values())
+    want = [kept.index(first[key]) for key in ids]
+    assert surv.tolist() == want
+    # nothing drops: the parse comes back as it is, with no map
+    unique = native.decode_updates_columns(blobs[:1])
+    assert native.dedup_columns(unique) is unique
+    assert "survivor" not in unique

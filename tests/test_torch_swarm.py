@@ -7,7 +7,9 @@ and snapshot. Held against the benchmark's plain reference
 (``benchmark/reference/swarm.py`` for the plan, ``reference/yjs.py``
 and ``gen/wire.py`` for the document), against ``crdt_tpu``'s
 ``FleetStep`` on the same blobs mapped to client ids, and against the
-device route's cache and snapshot.
+device route's cache and snapshot. ``load_trace``, which takes each
+peer's rows from the union's one parse, is held against ``crdt_tpu``'s
+(which decodes every blob again alone) field by field.
 """
 
 import numpy as np
@@ -21,7 +23,9 @@ from benchmark.reference import yjs
 from crdt_tpu.models import fleet as ref_fleet
 from crdt_tpu.parallel import gossip as ref_gossip
 from crdt_tpu_torch import replay_trace
-from crdt_tpu_torch.models import fleet
+from crdt_tpu_torch.codec import native, v1
+from crdt_tpu_torch.core.ids import DeleteSet
+from crdt_tpu_torch.models import fleet, replay
 from crdt_tpu_torch.obs import Tracer, set_tracer
 
 
@@ -141,3 +145,114 @@ def test_the_round_counts_its_layout_and_kernel_operands():
             c["sv_deficit.pairs"]) == (R, C, R * R * C, R * C, R * R)
     assert c["ds_mask.items"] == R * N and c["ds_mask.ranges"] >= 16
     assert {"fleet.load", "fleet.step", "fleet.plan"} <= set(rep["spans"])
+
+
+# --- load_trace takes each peer's rows from the union's one parse ------
+
+EMPTY = v1.encode_update([], DeleteSet())
+
+
+def _repeating(blob):
+    """``blob`` with its client sections written twice, so that it holds
+    each of its ids twice."""
+    _, ds = v1.decode_update(blob)
+    tail = v1.encode_update([], ds)[1:]
+    assert blob.endswith(tail) and blob[0] < 64
+    sections = blob[1:len(blob) - len(tail)]
+    return bytes([2 * blob[0]]) + sections + sections + tail
+
+
+def _delete_only(blob):
+    """A blob of ``blob``'s delete set and no structs."""
+    _, ds = v1.decode_update(blob)
+    assert any(True for _ in ds.iter_all())
+    return v1.encode_update([], ds)
+
+
+def _views(seed):
+    return gen_swarm.build(40, 20, 8, 20, seed=seed)[0]
+
+
+LOAD_CASES = {
+    "views_seed11": lambda: (_views(11), {}),
+    "views_seed2p40": lambda: (_views(2**40 + 9), {}),
+    "the_same_blob_twice": lambda: (_views(12) + [_views(12)[5]], {}),
+    "an_id_twice_in_one_blob": lambda: (
+        _views(13)[:4] + [_repeating(_views(13)[4])] + _views(13)[4:], {}),
+    "an_empty_blob": lambda: (_views(14)[:7] + [EMPTY] + _views(14)[7:],
+                              {}),
+    "a_delete_only_blob": lambda: (
+        _views(15) + [_delete_only(_views(15)[0])], {}),
+    "replicas_multiple_4": lambda: (_views(16)[:37],
+                                    {"replicas_multiple": 4}),
+    "pinned_ops_bucket": lambda: (_views(17), {"ops_bucket": 4096}),
+}
+
+
+def _assert_same_trace(got, want):
+    assert set(got.cols) == set(want.cols)
+    for k, v in want.cols.items():
+        assert got.cols[k].dtype == v.dtype and (got.cols[k] == v).all(), k
+    for g, w in zip(got.dels, want.dels):
+        assert g.dtype == w.dtype and (g == w).all()
+    assert got.row_map.shape == want.row_map.shape
+    assert (got.row_map == want.row_map).all()
+    assert (got.clients == want.clients).all()
+    assert (got.num_clients, got.num_segments, got.n_ops) == \
+        (want.num_clients, want.num_segments, want.n_ops)
+
+
+def _traced(fn):
+    tr = set_tracer(Tracer(enabled=True))
+    try:
+        out = fn()
+    finally:
+        set_tracer(Tracer(enabled=False))
+    return out, tr.report()["counters"]
+
+
+@pytest.mark.parametrize("case", sorted(LOAD_CASES) + ["ops_bucket_too_small"])
+def test_load_trace_from_the_parse_equals_the_reference(case):
+    if case == "ops_bucket_too_small":
+        blobs = _views(18)
+        with pytest.raises(ValueError, match="ops_bucket"):
+            fleet.load_trace(blobs, ops_bucket=4)
+        with pytest.raises(ValueError, match="ops_bucket"):
+            ref_fleet.load_trace(blobs, ops_bucket=4)
+        return
+    blobs, kw = LOAD_CASES[case]()
+    got, c = _traced(lambda: fleet.load_trace(blobs, **kw))
+    _assert_same_trace(got, ref_fleet.load_trace(blobs, **kw))
+    # the reference's n_ops counts every blob's rows, decoded alone
+    assert c["fleet.redelivered"] == \
+        got.n_ops - len(replay.decode(blobs)["client"])
+
+
+@pytest.mark.parametrize("other", ["without_blob_rows", "of_fewer_blobs",
+                                   "of_other_blobs"])
+def test_load_trace_refuses_a_union_not_of_its_blobs(other):
+    blobs = LOAD_CASES["an_id_twice_in_one_blob"]()[0]
+    dec = {
+        "without_blob_rows": lambda: {
+            k: v for k, v in replay.decode(blobs).items()
+            if k != "blob_rows"},
+        "of_fewer_blobs": lambda: replay.decode(blobs[:-1]),
+        "of_other_blobs": lambda: replay.decode(_views(20)[:len(blobs)]),
+    }[other]()
+    with pytest.raises(ValueError, match="not the union"):
+        fleet.load_trace(blobs, dec=dec)
+
+
+def test_a_round_parses_its_blobs_once(monkeypatch):
+    blobs, *_, info = _swarm(19)
+    parse = native.decode_updates_columns_any
+    calls = []
+
+    def counted(b):
+        calls.append(len(b))
+        return parse(b)
+
+    monkeypatch.setattr(native, "decode_updates_columns_any", counted)
+    res = replay_trace(blobs, route="fleet", device="cpu")
+    assert calls == [len(blobs)]
+    assert res.plan is not None and res.n_ops == info["rows"]
